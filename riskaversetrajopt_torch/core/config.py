@@ -1,0 +1,112 @@
+"""Typed configuration for the drone scenario, the SCP driver and the ADMM
+solver.
+
+Field for field the dataclasses of ``riskaversetrajopt_tpu/core/config.py``
+(same names, same defaults; the comments there explain each knob). Array
+valued scenario constants are properties returning float64 CPU tensors;
+callers move them to their device and dtype.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+
+@dataclass(frozen=True)
+class SCPConfig:
+    """Sequential-convex-programming driver knobs: iteration count and the
+    iteration gating of the risk/obstacle rows (drone_risk.py:413-417)."""
+
+    num_iters: int = 15
+    gate_iters: int = 2
+    gate_row_scale: float = 1e-7
+    gate_bound_l: float = -0.1
+    gate_bound_u: float = 0.1
+
+
+@dataclass(frozen=True)
+class SolverConfig:
+    """ADMM QP solver knobs with OSQP-equivalent semantics."""
+
+    eps_abs: float = 1e-3
+    eps_rel: float = 1e-3
+    max_iter: int = 4000
+    check_every: int = 25
+    rho: float = 0.1
+    rho_eq_scale: float = 1e3
+    rho_warm_start: bool = False
+    rho_epoch_every: int = 0
+    rho_update_factor: float = 5.0
+    sigma: float = 1e-6
+    alpha_relax: float = 1.6
+    adaptive_rho: bool = True
+    adaptive_rho_interval: int = 50
+    polish: bool = True
+    polish_refine_iters: int = 3
+    kkt_refine_iters: int = 1
+    kkt_refine_mode: str = "true"
+    kkt_refine_period: int = 1
+    kkt_chol_inverse: bool = False
+    sweep_precision: str = "highest"
+    scaled_termination: bool = False
+    eps_sched_iters: int = 0
+    eps_sched_factor: float = 1.0
+    check_backoff_max: int = 1
+    anderson_depth: int = 0
+    ds_kkt_passes: int = 1
+
+
+@dataclass(frozen=True)
+class DroneScenario:
+    """Drone point-mass with quadratic drag, feedback-corrected control, mass
+    uncertainty and uncertain ellipsoidal obstacles (drone_params.py:1-45)."""
+
+    n_x: int = 6
+    n_u: int = 3
+    S: int = 20
+    M: int = 50
+    T: float = 50.0
+    u_max: float = 10.0
+    mass_nom: float = 32.0
+    mass_delta: float = 3.0
+    beta: float = 1e-2
+    drag_coefficient: float = 0.2
+    n_obs: int = 3
+    obs_radii_deltas: float = 0.025
+    osqp_tol: float = 1e-3
+
+    @property
+    def dt(self) -> float:
+        return self.T / self.S
+
+    @property
+    def R(self) -> torch.Tensor:
+        return torch.eye(self.n_u, dtype=torch.float64)
+
+    @property
+    def feedback_gain(self) -> torch.Tensor:
+        K = torch.zeros(self.n_u, self.n_x, dtype=torch.float64)
+        K[:, :3] = 0.05 * torch.eye(self.n_u, dtype=torch.float64)
+        K[:, 3:] = 0.25 * torch.eye(self.n_u, dtype=torch.float64)
+        return -K
+
+    @property
+    def obs_positions(self) -> torch.Tensor:
+        return torch.tensor(
+            [[-1.4, -0.1, 0.0], [-0.7, 0.3, 0.0], [-0.3, 0.25, 0.0]],
+            dtype=torch.float64,
+        )
+
+    @property
+    def obs_radii(self) -> torch.Tensor:
+        return torch.tensor([0.3, 0.2, 0.2], dtype=torch.float64)
+
+    @property
+    def x_init(self) -> torch.Tensor:
+        return torch.tensor([-1.9, 0.05, 0.2, 0.0, 0.0, 0.0], dtype=torch.float64)
+
+    @property
+    def x_final(self) -> torch.Tensor:
+        return torch.zeros(self.n_x, dtype=torch.float64)

@@ -1,0 +1,438 @@
+"""ADMM QP solver with OSQP-equivalent semantics.
+
+The counterpart of ``riskaversetrajopt_tpu/ops/admm.py`` (its module
+docstring describes the algorithm: modified Ruiz equilibration, per-row rho,
+over-relaxation, unscaled-residual termination, adaptive rho, polishing and
+the OSQP infeasibility certificates).
+
+Problem form:
+    minimize    (1/2) x^T P x + q^T x
+    subject to  l <= A x <= u
+
+The loops are Python loops. The iterates stay on the device; the host reads
+device scalars only at the termination checks (one small transfer each),
+exactly where the JAX while-loops evaluate their conditions.
+
+Operator interface:
+    matvec_P(x), matvec_A(x), rmatvec_A(w)
+    factorize(rho_vec, sigma_vec, cost_scale) -> factor
+    kkt_solve(factor, rhs, rho_vec, sigma_vec, cost_scale) -> x
+        solves (cost_scale*P + diag(sigma_vec) + A^T diag(rho_vec) A) x = rhs
+    row_inf_norms(D), col_inf_norms(E), col_inf_norms_P(D)   (for Ruiz)
+"""
+
+from __future__ import annotations
+
+import copy
+from typing import NamedTuple, Optional
+
+import torch
+
+from riskaversetrajopt_torch.core.config import SolverConfig
+
+_RHO_MIN = 1e-6
+_RHO_MAX = 1e6
+_LOOSE_RHO = 1e-6
+_EQ_TOL = 1e-9
+_MIN_SCALING = 1e-4
+_MAX_SCALING = 1e4
+
+
+class QPSolution(NamedTuple):
+    x: torch.Tensor  # primal solution (n,)
+    y: torch.Tensor  # dual solution (m,)
+    z: torch.Tensor  # projected constraint values (m,)
+    iters: int  # iterations taken
+    prim_res: torch.Tensor  # 0-d
+    dual_res: torch.Tensor  # 0-d
+    solved: bool
+    # OSQP-style infeasibility certificates
+    prim_infeasible: bool = False
+    dual_infeasible: bool = False
+    # final adapted rho (0-d); the SCP driver threads it into the next QP
+    # as rho0 when SolverConfig.rho_warm_start is on (OSQP keeps rho in its
+    # workspace across the reference's update()/solve() loop)
+    rho: Optional[torch.Tensor] = None
+
+
+class Scaling(NamedTuple):
+    """Ruiz equilibration scalings: x = D xbar, constraint rows scaled by E,
+    cost scaled by c."""
+
+    D: torch.Tensor  # (n,)
+    E: torch.Tensor  # (m,)
+    c: torch.Tensor  # 0-d
+
+
+def ruiz_equilibrate(ops, q, l, u, iters: int = 5) -> Scaling:
+    """Modified Ruiz equilibration (OSQP sec 5.1), matrix-free: scales rows
+    and columns of [[P, A^T], [A, 0]] toward unit infinity norm, then
+    normalizes the cost."""
+    kw = dict(dtype=q.dtype, device=q.device)
+    D = torch.ones(q.shape[0], **kw)
+    E = torch.ones(l.shape[0], **kw)
+    c = torch.ones((), **kw)
+    for _ in range(iters):
+        colP = c * D * ops.col_inf_norms_P(D)
+        colA = ops.col_inf_norms(E) * D
+        col = torch.maximum(colP, colA)
+        rowA = ops.row_inf_norms(D) * E
+        d_new = 1.0 / torch.sqrt(torch.clamp(col, _MIN_SCALING, _MAX_SCALING))
+        e_new = 1.0 / torch.sqrt(torch.clamp(rowA, _MIN_SCALING, _MAX_SCALING))
+        D = D * d_new
+        E = E * e_new
+        # cost normalization
+        colP_new = c * D * ops.col_inf_norms_P(D)
+        gamma_denom = torch.maximum(
+            torch.mean(colP_new), torch.amax(torch.abs(c * D * q))
+        )
+        gamma = 1.0 / torch.clamp(gamma_denom, _MIN_SCALING, _MAX_SCALING)
+        # bound the accumulated cost scaling (a fully degenerate objective
+        # would compound gamma every sweep)
+        c = torch.clamp(c * gamma, 1e-6, 1e6)
+    return Scaling(D=D, E=E, c=c)
+
+
+class ScaledOps:
+    """Wraps an operator bundle with Ruiz scalings: Abar = E A D,
+    Pbar = c D P D, solving in the scaled space."""
+
+    def __init__(self, inner, scaling: Scaling):
+        self.inner = inner
+        self.s = scaling
+
+    def matvec_P(self, x):
+        s = self.s
+        return s.c * s.D * self.inner.matvec_P(s.D * x)
+
+    def matvec_A(self, x):
+        s = self.s
+        return s.E * self.inner.matvec_A(s.D * x)
+
+    def rmatvec_A(self, w):
+        s = self.s
+        return s.D * self.inner.rmatvec_A(s.E * w)
+
+    def factorize(self, rho_vec, sigma_vec, cost_scale=1.0):
+        # c D P D + diag(sigma) + D A^T E R E A D
+        #   = D (cP + diag(sigma/D^2) + A^T (R E^2) A) D
+        s = self.s
+        return self.inner.factorize(
+            rho_vec * s.E**2, sigma_vec / s.D**2, cost_scale * s.c
+        )
+
+    def kkt_solve(self, factor, rhs, rho_vec, sigma_vec, cost_scale=1.0):
+        s = self.s
+        x = self.inner.kkt_solve(
+            factor, rhs / s.D, rho_vec * s.E**2, sigma_vec / s.D**2,
+            cost_scale * s.c,
+        )
+        return x / s.D
+
+
+def rho_vector(l, u, rho):
+    """Per-row penalty following OSQP's classification: equality rows
+    (u - l <= tol) get 1e3*rho, fully-loose rows get RHO_MIN, others rho."""
+    rho = torch.as_tensor(rho, dtype=l.dtype, device=l.device)
+    eq = (u - l) <= _EQ_TOL
+    loose = torch.isinf(-l) & torch.isinf(u)
+    rho_vec = torch.where(eq, 1e3 * rho, rho)
+    rho_vec = torch.where(loose, torch.full_like(rho_vec, _LOOSE_RHO), rho_vec)
+    return torch.clamp(rho_vec, _RHO_MIN, _RHO_MAX)
+
+
+def certificate_terms(q, l, u, dy, dx, Atdy, Pdx, Adx):
+    """OSQP infeasibility-certificate conditions (Stellato et al. sec 3.4)
+    from the unscaled between-check deltas. Returns two 0-d bool tensors."""
+    eps_inf = 1e-4
+    inf = torch.tensor(float("inf"), dtype=u.dtype, device=u.device)
+    zero = torch.zeros((), dtype=u.dtype, device=u.device)
+    dy_norm = torch.amax(torch.abs(dy))
+    sup = torch.sum(
+        torch.where(dy > 0, torch.where(torch.isfinite(u), u, inf) * dy, zero)
+    ) + torch.sum(
+        torch.where(dy < 0, torch.where(torch.isfinite(l), l, -inf) * dy, zero)
+    )
+    prim_inf = (
+        (dy_norm > 1e-10)
+        & (torch.amax(torch.abs(Atdy)) <= eps_inf * dy_norm)
+        & (sup <= eps_inf * dy_norm)
+    )
+
+    dx_norm = torch.amax(torch.abs(dx))
+    tol = eps_inf * dx_norm
+    cone_ok = torch.all(
+        torch.where(
+            torch.isinf(u),
+            torch.isinf(-l) | (Adx >= -tol),
+            torch.where(torch.isinf(-l), Adx <= tol, torch.abs(Adx) <= tol),
+        )
+    )
+    dual_inf = (
+        (dx_norm > 1e-10)
+        & (torch.amax(torch.abs(Pdx)) <= tol)
+        & (torch.dot(q, dx) <= tol)
+        & cone_ok
+    )
+    return prim_inf, dual_inf
+
+
+def admm_solve(
+    ops,
+    q,
+    l,
+    u,
+    cfg: SolverConfig,
+    x0=None,
+    y0=None,
+    scaling: Optional[Scaling] = None,
+    rho0=None,
+    eps_scale=None,
+) -> QPSolution:
+    """Run ADMM to the OSQP termination criterion.
+
+    With `scaling` the iteration runs in the equilibrated space while
+    termination uses unscaled residuals; x0/y0 and the returned solution are
+    always unscaled. `eps_scale` multiplies both termination thresholds (the
+    inexact-SCP hook, SolverConfig.eps_sched_iters).
+
+    Loop structure (admm.py:519-588): an outer loop refactorizes at each rho
+    epoch and an inner loop iterates at fixed (rho, factor); every
+    `interval` iterations a termination check computes residuals,
+    certificates, the next interval and the adaptive-rho request."""
+    if cfg.anderson_depth > 0:
+        raise NotImplementedError(
+            "Anderson acceleration (SolverConfig.anderson_depth > 0) is not "
+            "ported yet (ROADMAP.md, Queue A)"
+        )
+    dtype, device = q.dtype, q.device
+    kw = dict(dtype=dtype, device=device)
+    n = q.shape[0]
+    m = l.shape[0]
+
+    if scaling is None:
+        scaling = Scaling(
+            D=torch.ones(n, **kw), E=torch.ones(m, **kw), c=torch.ones((), **kw)
+        )
+        sops = ops
+    else:
+        sops = ScaledOps(ops, scaling)
+    D, E, c = scaling.D, scaling.E, scaling.c
+
+    qs = c * D * q
+    ls = E * l
+    us = E * u
+    x = torch.zeros(n, **kw) if x0 is None else x0.to(dtype) / D
+    y = torch.zeros(m, **kw) if y0 is None else y0.to(dtype) * c / E
+    z = torch.clamp(sops.matvec_A(x), ls, us)
+
+    sigma_vec = torch.full((n,), cfg.sigma, **kw)
+    alpha = torch.tensor(cfg.alpha_relax, **kw)
+    rho = torch.clamp(
+        torch.as_tensor(cfg.rho if rho0 is None else rho0, **kw),
+        _RHO_MIN, _RHO_MAX,
+    )
+    ruf = float(cfg.rho_update_factor)
+    q_norm_unscaled = torch.amax(torch.abs(q))
+    eps_s = torch.as_tensor(1.0 if eps_scale is None else eps_scale, **kw)
+
+    # Periodic KKT refinement (cfg.kkt_refine_period > 1): the refined solve
+    # runs only on every P-th iteration, the unrefined one otherwise
+    period = int(cfg.kkt_refine_period)
+    two_path = (
+        period > 1
+        and cfg.kkt_refine_iters > 0
+        and hasattr(ops, "kkt_refine_iters")
+    )
+    if two_path:
+        inner0 = copy.copy(ops)
+        inner0.kkt_refine_iters = 0
+        sops0 = inner0 if sops is ops else ScaledOps(inner0, scaling)
+
+    def one_iter(x, z, y, rv, factor, it):
+        rhs = sigma_vec * x - qs + sops.rmatvec_A(rv * z - y)
+        solver = sops0 if two_path and it % period != 0 else sops
+        xt = solver.kkt_solve(factor, rhs, rv, sigma_vec)
+        zt = sops.matvec_A(xt)
+        x_next = alpha * xt + (1 - alpha) * x
+        z_relax = alpha * zt + (1 - alpha) * z
+        z_next = torch.clamp(z_relax + y / rv, ls, us)
+        y_next = y + rv * (z_relax - z_next)
+        return x_next, z_next, y_next
+
+    def residuals(x, z, y):
+        """Unscaled residuals + eps thresholds + scaled ratio for rho."""
+        Ax_s = sops.matvec_A(x)
+        Px_s = sops.matvec_P(x)
+        Aty_s = sops.rmatvec_A(y)
+        Ax = Ax_s / E
+        zu = z / E
+        Px = Px_s / (c * D)
+        Aty = Aty_s / (c * D)
+        amax = lambda v: torch.amax(torch.abs(v))  # noqa: E731
+        prim = amax(Ax - zu)
+        dual = amax(Px + q + Aty)
+        eps_prim = eps_s * (cfg.eps_abs + cfg.eps_rel * torch.maximum(
+            amax(Ax), amax(zu)))
+        eps_dual = eps_s * (cfg.eps_abs + cfg.eps_rel * torch.maximum(
+            torch.maximum(amax(Px), amax(Aty)), q_norm_unscaled))
+        # adaptive-rho ratio uses scaled residuals (OSQP sec 5.2)
+        prim_s = amax(Ax_s - z)
+        dual_s = amax(Px_s + qs + Aty_s)
+        denom_p = torch.maximum(amax(Ax_s), amax(z)) + 1e-30
+        denom_d = torch.maximum(
+            torch.maximum(amax(Px_s), amax(Aty_s)), amax(qs)
+        ) + 1e-30
+        ratio = (prim_s / denom_p) / (dual_s / denom_d + 1e-30)
+        return prim, dual, eps_prim, eps_dual, ratio
+
+    # iteration state; the scalars the loop conditions need live on the host
+    it = 0
+    interval = int(cfg.check_every)
+    done = prim_inf = dual_inf = False
+    prim_res = torch.tensor(float("inf"), **kw)
+    dual_res = torch.tensor(float("inf"), **kw)
+
+    def check(x_new, z_new, y_new, x_old, y_old, interval):
+        """One termination check after `interval` iterations. Returns the
+        device residuals, rho request and the host flags."""
+        prim, dual, eps_prim, eps_dual, ratio = residuals(x_new, z_new, y_new)
+        solved = (prim <= eps_prim) & (dual <= eps_dual)
+        dy = (y_new - y_old) * E / c  # unscaled dual delta
+        dx = (x_new - x_old) * D  # unscaled primal delta
+        p_inf, d_inf = certificate_terms(
+            q, l, u, dy, dx, ops.rmatvec_A(dy), ops.matvec_P(dx),
+            ops.matvec_A(dx),
+        )
+        far = (prim > 100.0 * eps_prim) | (dual > 100.0 * eps_dual)
+        if cfg.adaptive_rho:
+            rho_new = torch.clamp(rho * torch.sqrt(ratio), _RHO_MIN, _RHO_MAX)
+            refactor = ((rho_new > ruf * rho) | (rho_new < rho / ruf)) & ~solved
+        else:
+            rho_new = rho
+            refactor = torch.zeros((), dtype=torch.bool, device=device)
+        flags = torch.stack([solved, p_inf, d_inf, far, refactor]).tolist()
+        return prim, dual, rho_new, flags
+
+    factor = sops.factorize(rho_vector(ls, us, rho), sigma_vec)
+    epoch = int(cfg.rho_epoch_every) if cfg.adaptive_rho else 0
+    epoch_end = min(it + epoch, cfg.max_iter) if epoch > 0 else None
+    refactor = False
+    rho_next = rho
+    while not done and it < cfg.max_iter:
+        rv = rho_vector(ls, us, rho)  # fixed within one rho epoch
+        # inner fixed-rho loop
+        while not done and (
+            it < epoch_end if epoch > 0 else (not refactor and it < cfg.max_iter)
+        ):
+            x_old, y_old = x, y
+            for j in range(interval):
+                x, z, y = one_iter(x, z, y, rv, factor, it + j)
+            prim_res, dual_res, rho_c, (solved, prim_inf, dual_inf, far,
+                                        refactor) = check(
+                x, z, y, x_old, y_old, interval
+            )
+            if refactor:
+                rho_next = rho_c
+            if cfg.check_backoff_max > 1 and far:
+                iv = min(2 * interval, cfg.check_backoff_max * cfg.check_every)
+            else:
+                iv = cfg.check_every
+            it += interval
+            # never overshoot the iteration cap by more than the final check
+            interval = max(min(iv, cfg.max_iter - it), 1)
+            done = solved or prim_inf or dual_inf
+        if not cfg.adaptive_rho:
+            break
+        # rho epoch boundary: adopt the requested rho and refactorize
+        if refactor:
+            rho = rho_next
+        refactor = False
+        if epoch > 0:
+            epoch_end = min(it + epoch, cfg.max_iter)
+        if not done and it < cfg.max_iter:
+            factor = sops.factorize(rho_vector(ls, us, rho), sigma_vec)
+
+    # unscale
+    x_u = D * x
+    y_u = E * y / c
+    z_u = z / E
+    if cfg.polish:
+        x_u, y_u, z_u = _polish(ops, q, l, u, x_u, y_u, z_u, cfg)
+
+    return QPSolution(
+        x=x_u,
+        y=y_u,
+        z=z_u,
+        iters=it,
+        prim_res=prim_res,
+        dual_res=dual_res,
+        solved=bool(done and not (prim_inf or dual_inf)),
+        prim_infeasible=bool(prim_inf),
+        dual_infeasible=bool(dual_inf),
+        rho=rho,
+    )
+
+
+def _polish(ops, q, l, u, x, y, z, cfg):
+    """Static-shape analog of OSQP polishing (admm.py:612-729): solve the
+    KKT system with the active rows treated as stiff equalities (penalty
+    factor as preconditioner + exact-residual refinement), then an
+    active-set correction pass; accepted only if both residuals improve."""
+    dtype = q.dtype
+    n = q.shape[0]
+    kw = dict(dtype=dtype, device=q.device)
+    f32 = torch.finfo(dtype).bits <= 32
+    w_big = torch.tensor(1e4 if f32 else 1e7, **kw)
+    sigma_p = torch.full((n,), 1e-7 if f32 else 1e-9, **kw)
+    zero = torch.zeros((), **kw)
+    eps = torch.finfo(dtype).eps
+    # dual sign (OSQP's rule) with a relative dtype-aware threshold
+    y_tol = eps**0.75 * torch.clamp(torch.amax(torch.abs(y)), min=1.0)
+    lower_active = y < -y_tol
+    upper_active = y > y_tol
+    eq_like = lower_active & upper_active
+
+    def solve_with(low, up):
+        active = low | up
+        b = torch.where(low, l, torch.where(up, u, zero))
+        b = torch.where(torch.isfinite(b), b, zero)
+        w = torch.where(active, w_big, zero)
+        factor = ops.factorize(w, sigma_p, 1.0)
+        rhs = -q + ops.rmatvec_A(w * b)
+        x_pol = ops.kkt_solve(factor, rhs, w, sigma_p, 1.0)
+        y_pol = torch.where(active, w * (ops.matvec_A(x_pol) - b), zero)
+        for _ in range(cfg.polish_refine_iters):
+            r_x = -q - ops.matvec_P(x_pol) - ops.rmatvec_A(y_pol)
+            r_b = torch.where(active, b - ops.matvec_A(x_pol), zero)
+            dx = ops.kkt_solve(
+                factor, r_x + ops.rmatvec_A(w * r_b), w, sigma_p, 1.0
+            )
+            dy = torch.where(active, w * (ops.matvec_A(dx) - r_b), zero)
+            x_pol, y_pol = x_pol + dx, y_pol + dy
+        return x_pol, y_pol
+
+    x_pol, y_pol = solve_with(lower_active, upper_active)
+
+    # Active-set correction: drop rows whose multiplier took the wrong sign
+    # and re-solve once; equality rows are never dropped
+    s_tol = eps**0.5 * torch.clamp(torch.amax(torch.abs(y_pol)), min=1.0)
+    wrong = ~eq_like & (
+        (lower_active & ~upper_active & (y_pol > s_tol))
+        | (upper_active & ~lower_active & (y_pol < -s_tol))
+    )
+    if bool(torch.any(wrong)):
+        x_pol, y_pol = solve_with(lower_active & ~wrong, upper_active & ~wrong)
+
+    z_pol = torch.clamp(ops.matvec_A(x_pol), l, u)
+
+    def resid(xx, yy, zz):
+        prim = torch.amax(torch.abs(ops.matvec_A(xx) - zz))
+        dual = torch.amax(torch.abs(ops.matvec_P(xx) + q + ops.rmatvec_A(yy)))
+        return prim, dual
+
+    p0, d0 = resid(x, y, z)
+    p1, d1 = resid(x_pol, y_pol, z_pol)
+    better = (p1 <= torch.clamp(p0, min=1e-10)) & (d1 <= torch.clamp(d0, min=1e-10))
+    pick = lambda a, bb: torch.where(better, a, bb)  # noqa: E731
+    return pick(x_pol, x), pick(y_pol, y), pick(z_pol, z)

@@ -1,0 +1,569 @@
+"""Fused ADMM iterations of the structured SAA QP: host code and wrapper of
+the hand-written Hopper kernel ``csrc/saa_admm.cu``.
+
+The counterpart of ``riskaversetrajopt_tpu/ops/pallas/experimental/
+saa_admm.py`` in the natural layout: the scaled Jacobian stack Gs is
+(M, K, n), sample-row arrays are (M, K), per-sample arrays are (M,), and the
+"small rows" are one vector [final (n_fc) | cvar | slack | control (n)]. The
+TPU tile padding, the packed column slots and the lane masks are gone.
+
+The scaled problem folds Ruiz D/E/c, the gating and the MULTIPLIER into
+kernel-ready arrays (`scaled_structure`). The KKT solve eliminates the y
+block by Sherman-Morrison with the column-scaled CVaR rank-1 vector and
+applies the explicit inverse of the (n+2) Schur complement, formed in
+float64 whatever the working dtype.
+
+`one_iter_ref` is the plain PyTorch iteration; `admm_chunk` launches the
+kernel for CUDA tensors and runs `one_iter_ref` only for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import torch
+
+from riskaversetrajopt_torch.ops import admm as admm_mod
+from riskaversetrajopt_torch.ops.saa_qp import (
+    SAAQPData,
+    SAAQPOps,
+    SAAQPStatic,
+    build_bounds,
+    build_objective,
+    make_ops,
+)
+
+
+class KernelDims(NamedTuple):
+    n: int
+    n_fc: int
+    M: int
+    K: int
+
+
+def kernel_dims(st: SAAQPStatic) -> KernelDims:
+    return KernelDims(n=st.n, n_fc=st.n_fc, M=st.M, K=st.K)
+
+
+class ScaledSAA(NamedTuple):
+    """Kernel-ready scaled problem data + factorization, all float32.
+    The field order is the kernel's pointer order (csrc/saa_admm.cu Prob)."""
+
+    Gs: torch.Tensor  # (M, K, n)
+    eGy: torch.Tensor  # (M, K)
+    eGt: torch.Tensor  # (M, K)
+    rv_G: torch.Tensor  # (M, K)
+    lb_G: torch.Tensor  # (M, K), -inf where unbounded
+    ub_G: torch.Tensor  # (M, K)
+    rv_y: torch.Tensor  # (M,)
+    lb_y: torch.Tensor  # (M,)
+    ub_y: torch.Tensor  # (M,)
+    cy_hat: torch.Tensor  # (M,) scaled CVaR-row y coefficients
+    yd_hat: torch.Tensor  # (M,) scaled y-row y coefficients
+    ys_hat: torch.Tensor  # (M,) scaled y-row slack coefficients
+    Dinv: torch.Tensor  # (M,) inverse of the y-block diagonal
+    wD: torch.Tensor  # (M,) Dinv * cy_hat (Sherman-Morrison vector)
+    rv_small: torch.Tensor  # (n_fc+2+n,)
+    lb_small: torch.Tensor  # (n_fc+2+n,)
+    ub_small: torch.Tensor  # (n_fc+2+n,)
+    Fs: torch.Tensor  # (n_fc, n)
+    cu: torch.Tensor  # (n,)
+    q_hat_u: torch.Tensor  # (n,)
+    Sinv: torch.Tensor  # (n+2, n+2) inverse Schur complement
+    Cbar: torch.Tensor  # (M, n+2) y-v coupling
+    ct_hat: torch.Tensor  # () scaled CVaR-row t coefficient
+    cs_hat: torch.Tensor  # () scaled CVaR-row slack coefficient
+    ss_hat: torch.Tensor  # () scaled slack-row coefficient
+    q_hat_s: torch.Tensor  # ()
+    sm_beta: torch.Tensor  # () rho of the CVaR row
+    sm_denom: torch.Tensor  # () Sherman-Morrison denominator
+    sigma: torch.Tensor  # ()
+    alpha_relax: torch.Tensor  # ()
+
+
+class ScaledState(NamedTuple):
+    """Scaled ADMM iterate, all float32 (kernel pointer order, State)."""
+
+    u: torch.Tensor  # (n,)
+    s: torch.Tensor  # ()
+    t: torch.Tensor  # ()
+    y: torch.Tensor  # (M,)
+    z_y: torch.Tensor  # (M,)
+    yd_y: torch.Tensor  # (M,)
+    z_G: torch.Tensor  # (M, K)
+    yd_G: torch.Tensor  # (M, K)
+    z_small: torch.Tensor  # (n_fc+2+n,)
+    yd_small: torch.Tensor  # (n_fc+2+n,)
+
+
+def _split_rows(v, st: SAAQPStatic):
+    """Row vector in reference order -> (final, cvar, y, G (M, K), slack,
+    control)."""
+    n_fc, M, K = st.n_fc, st.M, st.K
+    o = n_fc + 1 + M
+    return (v[:n_fc], v[n_fc], v[n_fc + 1 : o],
+            v[o : o + M * K].reshape(M, K), v[o + M * K], v[o + M * K + 1 :])
+
+
+def _small(f, c, s, u):
+    return torch.cat([f, c.reshape(1), s.reshape(1), u])
+
+
+def scaled_structure(
+    st: SAAQPStatic, data: SAAQPData, scp_iter: int, scaling, rho, cfg,
+):
+    """Fold Ruiz scalings + gating + MULTIPLIER into kernel-ready float32
+    arrays and factorize the scaled KKT (saa_admm.py:156-374). The Schur
+    block and its inverse are formed in float64 from the float32 arrays.
+    Returns (ScaledSAA, (D, E, c)) with the float32 scalings for unscaling."""
+    f32 = torch.float32
+    n, M = st.n, st.M
+    ops = SAAQPOps(st, data, scp_iter)
+    sc = ops.scales
+    m_row = ops.m
+
+    D = scaling.D.to(f32)
+    E = scaling.E.to(f32)
+    c_cost = scaling.c.to(f32)
+    D_u, D_y, D_s, D_t = D[:n], D[n : n + M], D[n + M], D[n + M + 1]
+    E_f, E_c, E_y, E_G, E_s, E_u = _split_rows(E, st)
+
+    l_un, u_un = build_bounds(st, data, scp_iter)
+    ls = (E * l_un).to(f32)
+    us = (E * u_un).to(f32)
+    rho_vec = admm_mod.rho_vector(ls, us, rho).to(f32)
+    rv_f, rv_c, rv_y, rv_G, rv_s, rv_u = _split_rows(rho_vec, st)
+
+    eG = (sc.g * m_row * E_G).to(f32)  # (M, K)
+    Gs = eG[:, :, None] * data.G.to(f32) * D_u[None, None, :]
+    eGy = (sc.gy * eG * D_y[:, None]).to(f32)
+    eGt = (sc.gy * eG * D_t).to(f32)
+
+    Fs = (E_f[:, None] * data.F.to(f32)) * D_u[None, :]
+    cu = (E_u * D_u).to(f32)
+    cy_hat = (sc.c * E_c * D_y).to(f32)
+    ct_hat = (sc.c * E_c * ops.Malpha * D_t).to(f32)
+    # the CVaR row includes the slack column (car/driving.py:341-342)
+    cs_hat = (sc.c * E_c * D_s).to(f32)
+    yd_hat = (sc.y * E_y * D_y).to(f32)
+    ys_hat = (sc.y * E_y * D_s).to(f32)
+    ss_hat = (sc.s * E_s * D_s).to(f32)
+
+    p_diag, q = build_objective(st, data)
+    p_hat = (c_cost * D * D * p_diag).to(f32)
+    q_hat = (c_cost * D * q).to(f32)
+    sigma = torch.tensor(cfg.sigma, dtype=f32, device=Gs.device)
+
+    # --- scaled KKT factorization (Schur over samples, SM on the y block),
+    # in float64: the kernel applies the explicit inverse without in-kernel
+    # refinement, so the inversion error feeds the iteration directly ---
+    h = lambda x: x.to(torch.float64)  # noqa: E731
+    rv_G_h, eGy_h, eGt_h, Gs_h = h(rv_G), h(eGy), h(eGt), h(Gs)
+    Dbar = h(sigma) + h(rv_y) * h(yd_hat) ** 2 + torch.sum(rv_G_h * eGy_h**2, dim=1)
+    w_vec = h(cy_hat)
+    Dinv = 1.0 / Dbar
+    wD = Dinv * w_vec
+    rv_c_h = h(rv_c)
+    sm_denom = 1.0 + rv_c_h * torch.sum(w_vec * wD)
+
+    C_u = -torch.einsum("mk,mkn->mn", rv_G_h * eGy_h, Gs_h)
+    C_s = (h(rv_y) * h(yd_hat) * h(ys_hat) + rv_c_h * w_vec * h(cs_hat))[:, None]
+    C_t = (torch.sum(rv_G_h * eGy_h * eGt_h, dim=1)
+           + rv_c_h * w_vec * h(ct_hat))[:, None]
+    Cbar = torch.cat([C_u, C_s, C_t], dim=1)  # (M, n+2)
+
+    B = torch.einsum("mkn,mk,mkp->np", Gs_h, rv_G_h, Gs_h)
+    N_uu = (
+        torch.diag(h(p_hat[:n] + sigma + rv_u * cu**2))
+        + h(Fs).T @ (h(rv_f)[:, None] * h(Fs))
+        + B
+    )
+    N_ut = -torch.einsum("mk,mkn->n", rv_G_h * eGt_h, Gs_h)
+    N_ss = (
+        h(p_hat[n + M]) + h(sigma)
+        + torch.sum(h(rv_y) * h(ys_hat) ** 2)
+        + h(rv_s) * h(ss_hat) ** 2
+        + rv_c_h * h(cs_hat) ** 2
+    )
+    N_tt = h(sigma) + rv_c_h * h(ct_hat) ** 2 + torch.sum(rv_G_h * eGt_h**2)
+    N_st = rv_c_h * h(cs_hat) * h(ct_hat)
+    N_vv = torch.zeros(n + 2, n + 2, dtype=torch.float64, device=Gs.device)
+    N_vv[:n, :n] = N_uu
+    N_vv[:n, n + 1] = N_ut
+    N_vv[n + 1, :n] = N_ut
+    N_vv[n, n] = N_ss
+    N_vv[n, n + 1] = N_st
+    N_vv[n + 1, n] = N_st
+    N_vv[n + 1, n + 1] = N_tt
+
+    DinvC = Dinv[:, None] * Cbar
+    CtwD = Cbar.T @ wD
+    S = N_vv - (Cbar.T @ DinvC - (rv_c_h / sm_denom) * torch.outer(CtwD, CtwD))
+    Sinv = torch.linalg.inv(S).to(f32)
+
+    ls_f, ls_c, ls_y, ls_G, ls_s, ls_u = _split_rows(ls, st)
+    us_f, us_c, us_y, us_G, us_s, us_u = _split_rows(us, st)
+    p = ScaledSAA(
+        Gs=Gs.contiguous(),
+        eGy=eGy.contiguous(),
+        eGt=eGt.contiguous(),
+        rv_G=rv_G.contiguous(),
+        lb_G=ls_G.contiguous(),
+        ub_G=us_G.contiguous(),
+        rv_y=rv_y.contiguous(),
+        lb_y=ls_y.contiguous(),
+        ub_y=us_y.contiguous(),
+        cy_hat=cy_hat,
+        yd_hat=yd_hat.contiguous(),
+        ys_hat=ys_hat.contiguous(),
+        Dinv=Dinv.to(f32),
+        wD=wD.to(f32),
+        rv_small=_small(rv_f, rv_c, rv_s, rv_u),
+        lb_small=_small(ls_f, ls_c, ls_s, ls_u),
+        ub_small=_small(us_f, us_c, us_s, us_u),
+        Fs=Fs.contiguous(),
+        cu=cu,
+        q_hat_u=q_hat[:n].contiguous(),
+        Sinv=Sinv.contiguous(),
+        Cbar=Cbar.to(f32).contiguous(),
+        ct_hat=ct_hat,
+        cs_hat=cs_hat,
+        ss_hat=ss_hat,
+        q_hat_s=q_hat[n + M].clone(),
+        sm_beta=rv_c.clone(),
+        sm_denom=sm_denom.to(f32),
+        sigma=sigma,
+        alpha_relax=torch.tensor(cfg.alpha_relax, dtype=f32, device=Gs.device),
+    )
+    return p, (D, E, c_cost)
+
+
+def init_scaled_state(p: ScaledSAA) -> ScaledState:
+    """Cold start: zero iterate, rows projected onto their bounds."""
+    zeros = torch.zeros_like
+    return ScaledState(
+        u=zeros(p.q_hat_u),
+        s=zeros(p.sigma),
+        t=zeros(p.sigma),
+        y=zeros(p.rv_y),
+        z_y=torch.clamp(zeros(p.rv_y), p.lb_y, p.ub_y),
+        yd_y=zeros(p.rv_y),
+        z_G=torch.clamp(zeros(p.rv_G), p.lb_G, p.ub_G),
+        yd_G=zeros(p.rv_G),
+        z_small=torch.clamp(zeros(p.rv_small), p.lb_small, p.ub_small),
+        yd_small=zeros(p.rv_small),
+    )
+
+
+def _row_update(al, z, yd, zt, rv, lb, ub):
+    """ADMM relax/project/dual update for one row section."""
+    z_relax = al * zt + (1 - al) * z
+    z_next = torch.clamp(z_relax + yd / rv, lb, ub)
+    yd_next = yd + rv * (z_relax - z_next)
+    return z_next, yd_next
+
+
+def one_iter_ref(p: ScaledSAA, s: ScaledState, d: KernelDims) -> ScaledState:
+    """One scaled ADMM iteration in plain PyTorch (the kernel's plain
+    version; saa_admm.py:_iter_body)."""
+    n, n_fc = d.n, d.n_fc
+    al, sig = p.alpha_relax, p.sigma
+
+    # sweep 1: A^T contribution of the sample rows + per-sample sums
+    w_G = p.rv_G * s.z_G - s.yd_G
+    u_part = w_G.reshape(-1) @ p.Gs.reshape(-1, n)
+    rowsum_y = torch.sum(p.eGy * w_G, dim=1)
+    eGtw_sum = torch.sum(p.eGt * w_G)
+
+    # KKT solve: Sherman-Morrison on the y block + explicit Schur inverse
+    w_small = p.rv_small * s.z_small - s.yd_small
+    w_y = p.rv_y * s.z_y - s.yd_y
+    w_c, w_s = w_small[n_fc], w_small[n_fc + 1]
+    for j in range(n_fc):
+        u_part = u_part + w_small[j] * p.Fs[j]
+    u_part = u_part + p.cu * w_small[n_fc + 2 :]
+    rhs_u = sig * s.u - p.q_hat_u + u_part
+    rhs_y = sig * s.y + p.cy_hat * w_c - p.yd_hat * w_y - rowsum_y
+    rhs_s = (sig * s.s - p.q_hat_s + p.cs_hat * w_c
+             - torch.sum(p.ys_hat * w_y) - p.ss_hat * w_s)
+    rhs_t = sig * s.t + p.ct_hat * w_c - eGtw_sum
+
+    def sm_apply(r):
+        return p.Dinv * r - (p.sm_beta * torch.sum(p.wD * r) / p.sm_denom) * p.wD
+
+    g_y = sm_apply(rhs_y)
+    r_v = torch.cat([rhs_u, rhs_s[None], rhs_t[None]]) - p.Cbar.T @ g_y
+    v = r_v @ p.Sinv
+    y_t = sm_apply(rhs_y - p.Cbar @ v)
+    u_t, s_t, t_t = v[:n], v[n], v[n + 1]
+
+    # sweep 2: zt of the sample rows + their row update
+    zt_G = p.Gs @ u_t - p.eGy * y_t[:, None] - p.eGt * t_t
+    z_G, yd_G = _row_update(al, s.z_G, s.yd_G, zt_G, p.rv_G, p.lb_G, p.ub_G)
+
+    # small rows, y rows and the coupled variables
+    zt_y = -p.yd_hat * y_t - p.ys_hat * s_t
+    zt_c = torch.sum(p.cy_hat * y_t) + p.cs_hat * s_t + p.ct_hat * t_t
+    zt_s = -p.ss_hat * s_t
+    zt_small = _small(p.Fs @ u_t, zt_c, zt_s, p.cu * u_t)
+    z_y, yd_y = _row_update(al, s.z_y, s.yd_y, zt_y, p.rv_y, p.lb_y, p.ub_y)
+    z_small, yd_small = _row_update(
+        al, s.z_small, s.yd_small, zt_small, p.rv_small, p.lb_small, p.ub_small
+    )
+    return ScaledState(
+        u=al * u_t + (1 - al) * s.u,
+        s=al * s_t + (1 - al) * s.s,
+        t=al * t_t + (1 - al) * s.t,
+        y=al * y_t + (1 - al) * s.y,
+        z_y=z_y,
+        yd_y=yd_y,
+        z_G=z_G,
+        yd_G=yd_G,
+        z_small=z_small,
+        yd_small=yd_small,
+    )
+
+
+def _check_kernel_inputs(p: ScaledSAA, state: ScaledState, d: KernelDims):
+    n, n_fc, M, K = d
+    ns = n_fc + 2 + n
+    shapes = {
+        "Gs": (M, K, n), "eGy": (M, K), "eGt": (M, K), "rv_G": (M, K),
+        "lb_G": (M, K), "ub_G": (M, K), "rv_small": (ns,), "lb_small": (ns,),
+        "ub_small": (ns,), "Fs": (n_fc, n), "cu": (n,), "q_hat_u": (n,),
+        "Sinv": (n + 2, n + 2), "Cbar": (M, n + 2),
+        "u": (n,), "s": (), "t": (), "z_G": (M, K), "yd_G": (M, K),
+        "z_small": (ns,), "yd_small": (ns,),
+    }
+    for name in ("rv_y", "lb_y", "ub_y", "cy_hat", "yd_hat", "ys_hat",
+                 "Dinv", "wD", "y", "z_y", "yd_y"):
+        shapes[name] = (M,)
+    device = p.Gs.device
+    fields = list(zip(p._fields, p)) + list(zip(state._fields, state))
+    for name, x in fields:
+        want = shapes.get(name, ())
+        if x.device != device or x.dtype != torch.float32:
+            raise ValueError(
+                f"admm_chunk: {name} must be float32 on {device}, got "
+                f"{x.dtype} on {x.device}"
+            )
+        if tuple(x.shape) != want or not x.is_contiguous():
+            raise ValueError(
+                f"admm_chunk: {name} must be a contiguous {want} tensor, "
+                f"got {tuple(x.shape)} (contiguous={x.is_contiguous()})"
+            )
+
+
+def _library():
+    """The kernel library with its C signatures declared (built on first
+    use)."""
+    from riskaversetrajopt_torch.ops.cuda import build
+
+    lib = build.load("saa_admm")
+    fn = lib.saa_admm_chunk
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    for name in ("saa_admm_max_n", "saa_admm_samples_per_block"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = ctypes.c_int
+    return lib
+
+
+def _kernel_chunk(p: ScaledSAA, state: ScaledState, d: KernelDims,
+                  chunk: int) -> ScaledState:
+    lib = _library()
+    if d.n > lib.saa_admm_max_n():
+        raise ValueError(f"admm_chunk: n={d.n} exceeds the kernel's "
+                         f"{lib.saa_admm_max_n()} columns")
+    _check_kernel_inputs(p, state, d)
+    with torch.cuda.device(p.Gs.device):
+        out = ScaledState(*(torch.empty_like(x) for x in state))
+        spb = lib.saa_admm_samples_per_block()
+        nblk1 = (d.M + spb - 1) // spb
+        f32 = dict(dtype=torch.float32, device=p.Gs.device)
+        scratch = [
+            torch.empty(nblk1 * (d.n + 1), **f32),  # partials
+            torch.empty(d.M, **f32),  # rowsum_y
+            torch.empty(d.M, **f32),  # rhs_y
+            torch.empty(d.M, **f32),  # g_y
+            torch.empty(d.M, **f32),  # y_t
+            torch.empty(d.n + 2, **f32),  # vt
+        ]
+        tensors = list(p) + list(state) + list(out) + scratch
+        ptrs = (ctypes.c_void_p * len(tensors))(*(x.data_ptr() for x in tensors))
+        stream = torch.cuda.current_stream(p.Gs.device).cuda_stream
+        err = lib.saa_admm_chunk(ptrs, len(tensors), d.M, d.K, d.n, d.n_fc,
+                                 chunk, stream)
+        admm_chunk.launches += 1
+        if err != 0:
+            raise RuntimeError(f"saa_admm_chunk failed: CUDA error {err}")
+    return out
+
+
+def admm_chunk(p: ScaledSAA, state: ScaledState, d: KernelDims,
+               chunk: int) -> ScaledState:
+    """Run `chunk` scaled ADMM iterations (saa_admm.py:admm_chunk_pallas).
+
+    CUDA tensors launch the hand-written kernel (csrc/saa_admm.cu) and
+    count one launch; a CPU tensor runs `one_iter_ref`; any other device
+    raises."""
+    if p.Gs.device.type == "cuda":
+        return _kernel_chunk(p, state, d, chunk)
+    if p.Gs.device.type != "cpu":
+        raise ValueError(f"admm_chunk: no kernel for device {p.Gs.device}")
+    for _ in range(chunk):
+        state = one_iter_ref(p, state, d)
+    return state
+
+
+admm_chunk.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# state <-> flat conversion (warm starts and residual checks)
+# ---------------------------------------------------------------------------
+
+
+def state_to_flat(s: ScaledState, d: KernelDims):
+    """Scaled kernel state -> scaled flat (x, z, yd) in reference row order."""
+    n_fc = d.n_fc
+    x = torch.cat([s.u, s.y, s.s.reshape(1), s.t.reshape(1)])
+
+    def rows(z_G, z_y, z_small):
+        return torch.cat([
+            z_small[: n_fc + 1], z_y, z_G.reshape(-1), z_small[n_fc + 1 :],
+        ])
+
+    return x, rows(s.z_G, s.z_y, s.z_small), rows(s.yd_G, s.yd_y, s.yd_small)
+
+
+def flat_to_state(x, z, yd, st: SAAQPStatic) -> ScaledState:
+    """Scaled flat (x, z, yd) -> kernel state (float32)."""
+    n, M = st.n, st.M
+    f32 = torch.float32
+
+    def seg(v):
+        v_f, v_c, v_y, v_G, v_s, v_u = _split_rows(v.to(f32), st)
+        return v_G.contiguous(), v_y.contiguous(), _small(v_f, v_c, v_s, v_u)
+
+    z_G, z_y, z_small = seg(z)
+    yd_G, yd_y, yd_small = seg(yd)
+    x = x.to(f32)
+    return ScaledState(
+        u=x[:n].contiguous(), s=x[n + M].clone(), t=x[n + M + 1].clone(),
+        y=x[n : n + M].contiguous(), z_y=z_y, yd_y=yd_y, z_G=z_G, yd_G=yd_G,
+        z_small=z_small, yd_small=yd_small,
+    )
+
+
+# ---------------------------------------------------------------------------
+# solver integration: chunked ADMM with termination checks between chunks
+# ---------------------------------------------------------------------------
+
+
+def solve_saa_qp_pallas(
+    st: SAAQPStatic,
+    data: SAAQPData,
+    scp_iter: int,
+    cfg,
+    x0=None,
+    y0=None,
+    ruiz_iters: int = 5,
+    chunk: int = 100,
+    rho0=None,
+) -> admm_mod.QPSolution:
+    """OSQP-semantics solve of the structured SAA QP with the fused kernel
+    (saa_admm.py:907-1061): `chunk` ADMM iterations per kernel call,
+    unscaled-residual termination checked between chunks, adaptive rho by
+    re-forming the scaled structure. Float32 only.
+
+    Polish factorizes the float32 operator, which needs the compensated
+    formation of ops/dsjit.py (not ported yet), so cfg.polish raises before
+    any iteration runs."""
+    if data.G.dtype != torch.float32:
+        raise ValueError(
+            f"the fused-kernel ADMM solves float32 problems; got {data.G.dtype}"
+        )
+    if cfg.polish:
+        raise NotImplementedError(
+            "polish of a float32 SAA QP factorizes with the compensated "
+            "reductions of ops/dsjit.py, which are not ported yet (ROADMAP "
+            "Queue A); pass SolverConfig(polish=False)"
+        )
+    d = kernel_dims(st)
+    f32 = torch.float32
+    ops = make_ops(st, data, scp_iter, cfg)
+    _, q = build_objective(st, data)
+    l, u = build_bounds(st, data, scp_iter)
+    scaling = admm_mod.ruiz_equilibrate(ops, q, l, u, iters=ruiz_iters)
+    rho = torch.clamp(
+        torch.as_tensor(cfg.rho if rho0 is None else rho0, dtype=f32,
+                        device=q.device),
+        1e-6, 1e6,
+    )
+    ruf = float(cfg.rho_update_factor)
+    p, (D, E, c_cost) = scaled_structure(st, data, scp_iter, scaling, rho, cfg)
+    sops = admm_mod.ScaledOps(ops, scaling)
+
+    if x0 is None:
+        state = init_scaled_state(p)
+    else:
+        xbar = x0.to(f32) / D
+        ybar = c_cost * y0.to(f32) / E
+        zbar = torch.clamp(sops.matvec_A(xbar), E * l, E * u)
+        state = flat_to_state(xbar, zbar, ybar, st)
+
+    q_norm = torch.amax(torch.abs(q))
+    qs_v = c_cost * D * q
+    amax = lambda v: torch.amax(torch.abs(v))  # noqa: E731
+
+    def residuals(state):
+        xb, zb, yb = state_to_flat(state, d)
+        x_u = D * xb
+        z_u = zb / E
+        y_u = E * yb / c_cost
+        Ax = ops.matvec_A(x_u)
+        Px = ops.matvec_P(x_u)
+        Aty = ops.rmatvec_A(y_u)
+        prim = amax(Ax - z_u)
+        dual = amax(Px + q + Aty)
+        eps_prim = cfg.eps_abs + cfg.eps_rel * torch.maximum(amax(Ax), amax(z_u))
+        eps_dual = cfg.eps_abs + cfg.eps_rel * torch.maximum(
+            torch.maximum(amax(Px), amax(Aty)), q_norm)
+        # adaptive-rho ratio from SCALED residuals (OSQP sec 5.2)
+        Ax_s = sops.matvec_A(xb)
+        Px_s = sops.matvec_P(xb)
+        Aty_s = sops.rmatvec_A(yb)
+        prim_s = amax(Ax_s - zb)
+        dual_s = amax(Px_s + qs_v + Aty_s)
+        den_ps = torch.maximum(amax(Ax_s), amax(zb)) + 1e-30
+        den_ds = torch.maximum(
+            torch.maximum(amax(Px_s), amax(Aty_s)), amax(qs_v)) + 1e-30
+        ratio = (prim_s / den_ps) / (dual_s / den_ds + 1e-30)
+        return prim, dual, (prim <= eps_prim) & (dual <= eps_dual), ratio
+
+    it = 0
+    done = False
+    prim = dual = torch.tensor(float("inf"), dtype=f32, device=q.device)
+    while not done and it < cfg.max_iter:
+        state = admm_chunk(p, state, d, chunk)
+        prim, dual, ok, ratio = residuals(state)
+        if cfg.adaptive_rho:
+            rho_new = torch.clamp(rho * torch.sqrt(ratio), 1e-6, 1e6)
+            do_update = ((rho_new > ruf * rho) | (rho_new < rho / ruf)) & ~ok
+            done, update = torch.stack([ok, do_update]).tolist()
+            if update:
+                rho = rho_new
+                p = scaled_structure(st, data, scp_iter, scaling, rho, cfg)[0]
+        else:
+            done = bool(ok)
+        it += chunk
+
+    xb, zb, yb = state_to_flat(state, d)
+    return admm_mod.QPSolution(
+        x=D * xb, y=E * yb / c_cost, z=zb / E, iters=it, prim_res=prim,
+        dual_res=dual,
+        solved=bool(done), rho=rho,
+    )

@@ -1,0 +1,234 @@
+"""SCP driver: the sequential-convex-programming loop.
+
+The counterpart of ``riskaversetrajopt_tpu/scp/driver.py``. One SCP
+iteration = linearize (batched rollout + forward-mode Jacobians) + pack
+(structured epigraph) + ADMM solve, warm-started from the previous QP. The
+loop is a Python loop over iterations; the iterates stay on the device.
+
+Backends: 'admm' (the structured ADMM of ops/admm.py) and '_admm-pallas'
+(the fused-kernel ADMM of ops/cuda/saa_admm.py, float32 only). The JAX
+package's other backends are not ported yet and raise.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from riskaversetrajopt_torch.core.config import SCPConfig, SolverConfig
+from riskaversetrajopt_torch.ops.cvar import avar
+from riskaversetrajopt_torch.ops.rollout import linearize_batch, rollout_batch
+from riskaversetrajopt_torch.ops.saa_qp import (
+    SAAQPStatic,
+    pack_saa_qp_data,
+    solve_saa_qp,
+)
+
+_BACKENDS = ("admm", "_admm-pallas")
+
+
+class SCPResult(NamedTuple):
+    us: torch.Tensor  # (S, n_u) final controls
+    xs: torch.Tensor  # (M, S+1, n_x) trajectories under the final controls
+    t_risk: torch.Tensor  # CVaR epigraph t at the last iteration
+    l2_errors: torch.Tensor  # (num_iters,) relative control-update errors
+    qp_iters: torch.Tensor  # (num_iters,) solver iterations per SCP step
+    qp_solved: torch.Tensor  # (num_iters,) solver convergence flags
+    us_history: torch.Tensor  # (num_iters, S, n_u)
+
+
+def l2_error_us(us_mat, us_mat_prev):
+    """Relative L2 control-update error (car/driving.py:459-464)."""
+    err = torch.mean(torch.linalg.norm(us_mat - us_mat_prev, dim=-1))
+    return err / torch.mean(torch.linalg.norm(us_mat, dim=-1))
+
+
+class SAATrajOpt:
+    """User-facing facade bundling a model with solver/SCP configuration.
+
+    Typical use:
+        opt = SAATrajOpt(DroneModel(), device="cuda")
+        omegas = opt.sample(torch.Generator("cuda").manual_seed(0), M=1000)
+        res = opt.solve(omegas, alpha=0.2)
+    """
+
+    def __init__(
+        self,
+        model,
+        method: str = "saa",
+        scp_cfg: Optional[SCPConfig] = None,
+        qp_backend: str = "admm",
+        admm_cfg: Optional[SolverConfig] = None,
+        slack_penalty: Optional[float] = None,
+        baseline_pad: float = 0.0,
+        dtype=torch.float64,
+        device=None,
+    ):
+        if qp_backend not in _BACKENDS:
+            raise ValueError(
+                f"qp_backend {qp_backend!r} is not ported; the port has "
+                f"{_BACKENDS} (ROADMAP Queue A lists the others)"
+            )
+        if qp_backend == "_admm-pallas" and dtype != torch.float32:
+            raise ValueError(
+                "'_admm-pallas' runs the float32 fused kernel; pass "
+                f"dtype=torch.float32 (got {dtype})"
+            )
+        self.method = method
+        self.qp_backend = qp_backend
+        # eps 1e-6, polish off, one KKT refinement pass: the golden-tracking
+        # defaults of the JAX driver (driver.py:99-129 gives the measurements)
+        self.admm_cfg = admm_cfg or SolverConfig(
+            eps_abs=1e-6, eps_rel=1e-6, max_iter=20000,
+            polish=False, kkt_refine_iters=1,
+        )
+        if self.admm_cfg.eps_sched_iters > 0 and qp_backend != "admm":
+            raise ValueError(
+                "SolverConfig.eps_sched_iters is only implemented for the "
+                f"'admm' backend (got {qp_backend!r})"
+            )
+        self.dtype = dtype
+        self.device = torch.device(model.device if device is None else device)
+        self.model = model.to(self.device, dtype)
+        scn = model.scn
+        n = model.S * model.n_u
+        if scp_cfg is None:
+            scp_cfg = model.default_scp_config()
+        self.scp_cfg = scp_cfg
+        # objective diagonal: 2*dt*R per step (car/driving.py:375-389)
+        self.p_diag_u = (2.0 * model.dt * torch.diagonal(scn.R)).repeat(
+            model.S).to(self.device, dtype)
+        self.static = SAAQPStatic(
+            n=n,
+            M=-1,  # filled in per solve (depends on the sample count)
+            K=model.K,
+            n_fc=model.n_fc,
+            n_x=model.n_x,
+            row_scale=model.row_scale,
+            slack_penalty=(
+                slack_penalty if slack_penalty is not None
+                else model.slack_penalty
+            ),
+            u_max=float(scn.u_max),
+            baseline=(method == "baseline"),
+            baseline_pad=baseline_pad,
+            gate_iters=scp_cfg.gate_iters,
+            gate_scale=scp_cfg.gate_row_scale,
+            gate_l=scp_cfg.gate_bound_l,
+            gate_u=scp_cfg.gate_bound_u,
+        )
+
+    # -- sampling ----------------------------------------------------------
+    def sample(self, generator: torch.Generator, M: int,
+               method: Optional[str] = None):
+        return self.model.sample(generator, M, method or self.method)
+
+    # -- one SCP iteration (define + solve) --------------------------------
+    def _static_for(self, M: int) -> SAAQPStatic:
+        return self.static._replace(M=M)
+
+    def _define(self, us_prev, omegas, alpha):
+        lin = linearize_batch(self.model, us_prev, omegas)
+        return pack_saa_qp_data(lin, us_prev.reshape(-1), self.p_diag_u, alpha)
+
+    def _warm_rho(self, warm, scp_iter: int):
+        """The previous QP's adapted rho (OSQP keeps rho in its workspace
+        across the reference's SCP loop, drone_risk.py:443-452), except at
+        the gating transition, where the subproblem changes structurally and
+        the solve restarts from cfg.rho (driver.py:203-220)."""
+        if warm is None or not self.admm_cfg.rho_warm_start:
+            return None
+        if scp_iter == self.scp_cfg.gate_iters:
+            return torch.tensor(self.admm_cfg.rho, dtype=self.dtype,
+                                device=self.device)
+        return warm[2]
+
+    def _solve_qp(self, st, data, scp_iter: int, warm=None):
+        x0 = warm[0] if warm is not None else None
+        y0 = warm[1] if warm is not None else None
+        rho0 = self._warm_rho(warm, scp_iter)
+        if self.qp_backend == "_admm-pallas":
+            from riskaversetrajopt_torch.ops.cuda import saa_admm
+
+            return saa_admm.solve_saa_qp_pallas(
+                st, data, scp_iter, self.admm_cfg, x0=x0, y0=y0, rho0=rho0,
+            )
+        eps_scale = None
+        if self.admm_cfg.eps_sched_iters > 0:
+            # inexact-SCP tolerance schedule: early subproblems terminate at
+            # factor * eps (they only seed the next linearization)
+            eps_scale = (self.admm_cfg.eps_sched_factor
+                         if scp_iter < self.admm_cfg.eps_sched_iters else 1.0)
+        return solve_saa_qp(st, data, scp_iter, self.admm_cfg, x0=x0, y0=y0,
+                            rho0=rho0, eps_scale=eps_scale)
+
+    # -- full SCP solve ----------------------------------------------------
+    def solve(self, omegas, alpha, M: Optional[int] = None) -> SCPResult:
+        """Run the full SCP loop (fixed iteration count, reference semantics:
+        convergence is monitored but not used for termination,
+        car/driving.py:500-513)."""
+        if M is None:
+            M = omegas[0].shape[0]
+        return self._solve_core(omegas, alpha, M)
+
+    def _solve_core(self, omegas, alpha, M: int) -> SCPResult:
+        kw = dict(dtype=self.dtype, device=self.device)
+        omegas = type(omegas)(*(torch.as_tensor(x).to(**kw) for x in omegas))
+        alpha = torch.as_tensor(alpha, **kw)
+        st = self._static_for(M)
+        n = st.n
+        us_prev = self.model.initial_guess()
+        warm = (
+            torch.zeros(n + M + 2, **kw),
+            torch.zeros(st_total_rows(st), **kw),
+            torch.tensor(self.admm_cfg.rho, **kw),
+        )
+        l2s, t_risks, qp_iters, qp_solved, us_hist = [], [], [], [], []
+        for scp_iter in range(self.scp_cfg.num_iters):
+            data = self._define(us_prev, omegas, alpha)
+            sol = self._solve_qp(st, data, scp_iter, warm)
+            us = sol.x[:n].reshape(self.model.S, self.model.n_u).to(self.dtype)
+            l2s.append(l2_error_us(us, us_prev))
+            t_risks.append(sol.x[-1])
+            qp_iters.append(sol.iters)
+            qp_solved.append(sol.solved)
+            us_hist.append(us)
+            warm = (sol.x, sol.y, sol.rho.to(self.dtype))
+            us_prev = us
+        xs = rollout_batch(self.model, us_prev, omegas)
+        return SCPResult(
+            us=us_prev,
+            xs=xs,
+            t_risk=t_risks[-1],
+            l2_errors=torch.stack(l2s),
+            qp_iters=torch.tensor(qp_iters),
+            qp_solved=torch.tensor(qp_solved),
+            us_history=torch.stack(us_hist),
+        )
+
+    # -- Monte-Carlo validation oracle -------------------------------------
+    def monte_carlo(self, us, omegas, alpha, tol: Optional[float] = None):
+        """Out-of-sample validation (driver.py:721-762): per-sample max
+        constraint minus tol <= 1e-6 => safe; returns the safe fraction, the
+        AVaR of the max-constraint statistic and the control cost. The
+        default tol is OSQP_TOL, as car/driving.py:636 and
+        drone/drone_risk.py:660 feed `max(g) - OSQP_TOL` to both tests."""
+        kw = dict(dtype=self.dtype, device=self.device)
+        model = self.model
+        us = torch.as_tensor(us).to(**kw)
+        omegas = type(omegas)(*(torch.as_tensor(x).to(**kw) for x in omegas))
+        tol = model.scn.osqp_tol if tol is None else tol
+        xs = rollout_batch(model, us, omegas)
+        max_cons = torch.amax(model.ineq_constraints(xs, omegas), dim=-1) - tol
+        safe = torch.mean((max_cons <= 1e-6).to(self.dtype))
+        return {
+            "safe_frac": safe,
+            "avar": avar(max_cons, alpha),
+            "cost": model.control_cost(us),
+            "max_constraints": max_cons,
+        }
+
+
+def st_total_rows(st: SAAQPStatic) -> int:
+    return st.n_fc + 1 + st.M + st.M * st.K + 1 + st.n

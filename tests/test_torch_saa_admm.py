@@ -1,0 +1,201 @@
+"""The port's fused-ADMM host code (ops/cuda/saa_admm.py) against the JAX
+package's Pallas host code (ops/pallas/experimental/saa_admm.py) on the same
+float32 problem, M=12. JAX runs its plain `one_iter_ref` here, never
+interpret mode; test_torch_cuda_kernels.py holds the CUDA kernel against the
+port's plain version on the card."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from riskaversetrajopt_torch import interop
+from riskaversetrajopt_torch.core.config import SolverConfig as TSolverConfig
+from riskaversetrajopt_torch.ops.cuda import saa_admm as tk
+from riskaversetrajopt_torch.ops import saa_qp as tqp
+from riskaversetrajopt_tpu.core.config import SolverConfig
+from riskaversetrajopt_tpu.ops import admm as jadmm
+from riskaversetrajopt_tpu.ops.pallas.experimental import saa_admm as jk
+from riskaversetrajopt_tpu.ops.saa_qp import (
+    SAAQPOps,
+    build_bounds,
+    build_objective,
+)
+from tests.test_saa_qp import dense_reference_A, make_problem
+
+CFG = SolverConfig()
+TCFG = TSolverConfig()
+
+
+def _setup(scp_iter, M=12):
+    """test_pallas_admm.py:setup on both sides: the JAX scaled structure and
+    the port's, formed from the same float32 data, Ruiz scaling and rho."""
+    st, data = make_problem(M=M)
+    data32 = jax.tree.map(lambda x: jnp.asarray(x, jnp.float32), data)
+    ops = SAAQPOps(st, data32, jnp.asarray(scp_iter))
+    _, q = build_objective(st, data32)
+    l, u = build_bounds(st, data32, jnp.asarray(scp_iter))
+    scaling = jadmm.ruiz_equilibrate(ops, q, l, u, iters=5)
+    rho = jnp.asarray(CFG.rho, jnp.float32)
+    p_j, _ = jk.scaled_structure(st, data32, jnp.asarray(scp_iter), scaling,
+                                 rho, CFG, TM=8)
+    d_j = jk.kernel_dims(st, TM=8)
+    tst = tqp.SAAQPStatic(*st[:14])
+    tdata = interop.saa_qp_data(data32, dtype=torch.float32)
+    p_t, _ = tk.scaled_structure(
+        tst, tdata, scp_iter, interop.scaling(scaling, dtype=torch.float32),
+        torch.tensor(CFG.rho, dtype=torch.float32), TCFG,
+    )
+    return st, data32, p_j, d_j, tst, tdata, p_t, tk.kernel_dims(tst)
+
+
+@pytest.fixture(scope="module")
+def setups():
+    cache = {}
+
+    def get(scp_iter):
+        if scp_iter not in cache:
+            cache[scp_iter] = _setup(scp_iter)
+        return cache[scp_iter]
+
+    return get
+
+
+@pytest.mark.parametrize("scp_iter", [0, 3])
+def test_scaled_structure_matches(setups, scp_iter):
+    """Elementwise fields are the same float32 products in the same order
+    (equal to an ulp); Sinv, Cbar and the Sherman-Morrison terms are formed
+    in float64 from the same float32 arrays on both sides and differ only by
+    float64 summation order before the cast to float32."""
+    _, _, p_j, d_j, _, _, p_t, _ = setups(scp_iter)
+    ref = interop.scaled_saa(p_j, d_j)
+    for name, a, b in zip(p_t._fields, p_t, ref):
+        assert a.dtype == torch.float32 and a.shape == b.shape, name
+        a, b = a.numpy(), b.numpy()
+        np.testing.assert_array_equal(np.isinf(a), np.isinf(b), err_msg=name)
+        fin = np.isfinite(b)
+        np.testing.assert_allclose(
+            a[fin], b[fin], rtol=2e-6, atol=2e-6 * np.max(np.abs(b[fin]), initial=0),
+            err_msg=name,
+        )
+
+
+def test_init_state_matches(setups):
+    _, _, p_j, d_j, _, _, p_t, _ = setups(3)
+    ref = interop.scaled_state(jk.init_scaled_state(p_j, d_j), d_j)
+    for name, a, b in zip(ref._fields, tk.init_scaled_state(p_t), ref):
+        np.testing.assert_array_equal(a.numpy(), b.numpy(), err_msg=name)
+
+
+@pytest.mark.parametrize(
+    "scp_iter,dtype,tol",
+    [(0, "float64", 1e-4), (3, "float64", 1e-4), (3, "float32", 2e-2)],
+)
+def test_one_iter_ref_matches(setups, scp_iter, dtype, tol):
+    """Five plain iterations on both sides, from the JAX structure carried
+    over by interop, compared through state_to_flat, to `tol` of each
+    vector's scale.
+
+    float64 checks the logic: the JAX iteration rounds the Schur solve
+    v = r_v Sinv to float32 (preferred_element_type), which the 1e3 rho of
+    the equality rows amplifies to ~1e-5 of scale in the duals. float32 is
+    the kernel's dtype: there each side lies ~1e-3 (x, z) and ~1e-2 (duals)
+    from the float64 iteration at scp_iter 3 (and O(1) in the equality-row
+    duals of the gated scp_iter 0), so two float32 runs are held to the 2e-2
+    of test_pallas_admm.py:108-114."""
+    st, _, p_j, d_j, tst, _, _, d_t = setups(scp_iter)
+    p_j = jax.tree.map(lambda x: jnp.asarray(x, dtype), p_j)
+    p = interop.scaled_saa(p_j, d_j)  # float32 values, exact in float64
+    p = type(p)(*(x.to(getattr(torch, dtype)) for x in p))
+    s_j = jax.tree.map(lambda x: jnp.asarray(x, dtype),
+                       jk.init_scaled_state(p_j, d_j))
+    s_t = tk.init_scaled_state(p)
+    for _ in range(5):
+        s_j = jk.one_iter_ref(p_j, s_j, d_j)
+        s_t = tk.one_iter_ref(p, s_t, d_t)
+    for name, a, b in zip("x z yd".split(), tk.state_to_flat(s_t, d_t),
+                          jk.state_to_flat(p_j, s_j, st, d_j)):
+        b = np.asarray(b)
+        np.testing.assert_allclose(a.numpy(), b, rtol=0,
+                                   atol=tol * np.max(np.abs(b)), err_msg=name)
+
+
+def test_flat_state_roundtrip(setups):
+    """state_to_flat / flat_to_state only move float32 values: exact."""
+    _, _, _, _, tst, _, p_t, d_t = setups(3)
+    s = tk.init_scaled_state(p_t)
+    for _ in range(3):
+        s = tk.one_iter_ref(p_t, s, d_t)
+    flat = tk.state_to_flat(s, d_t)
+    back = tk.flat_to_state(*flat, tst)
+    for name, a, b in zip(s._fields, back, s):
+        np.testing.assert_array_equal(a.numpy(), b.numpy(), err_msg=name)
+
+
+def test_admm_chunk_on_cpu_is_the_plain_iteration(setups):
+    """On CPU tensors admm_chunk runs one_iter_ref and counts no launch."""
+    _, _, _, _, _, _, p_t, d_t = setups(3)
+    s0 = tk.init_scaled_state(p_t)
+    ref = s0
+    for _ in range(4):
+        ref = tk.one_iter_ref(p_t, ref, d_t)
+    before = tk.admm_chunk.launches
+    out = tk.admm_chunk(p_t, s0, d_t, 4)
+    assert tk.admm_chunk.launches == before
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)
+
+
+def test_kernel_wrapper_rejects_bad_inputs(setups):
+    """No quiet fallback: an unknown device raises, and the kernel's input
+    check refuses a wrong dtype, shape or layout."""
+    _, _, _, _, _, _, p_t, d_t = setups(3)
+    s0 = tk.init_scaled_state(p_t)
+    meta = lambda nt: type(nt)(*(x.to("meta") for x in nt))  # noqa: E731
+    with pytest.raises(ValueError, match="no kernel"):
+        tk.admm_chunk(meta(p_t), meta(s0), d_t, 1)
+    tk._check_kernel_inputs(p_t, s0, d_t)
+    for bad in (p_t._replace(Gs=p_t.Gs.double()),
+                p_t._replace(Fs=p_t.Fs.T.contiguous().T),
+                p_t._replace(cu=p_t.cu[:-1])):
+        with pytest.raises(ValueError, match="admm_chunk"):
+            tk._check_kernel_inputs(bad, s0, d_t)
+
+
+def test_solve_saa_qp_pallas_quality():
+    """test_pallas_admm.py:136-170 on the port's CPU path (plain iteration):
+    feasible to 2e-2 against the dense constraint matrix, with the objective
+    of the structured 'admm' solve at the same tolerance (this small f32
+    problem stalls near eps 1e-3 for every backend, so the contract is
+    solution quality at a fixed budget, not the solved flag). The reference
+    solve is the port's float64 one, which test_torch_admm.py holds to the
+    JAX solve; the port's float32 'admm' and polish need ops/dsjit.py."""
+    st, data = make_problem(M=12)
+    tst, tdata = tqp.SAAQPStatic(*st[:14]), interop.saa_qp_data(data)
+    cfg = TSolverConfig(eps_abs=1e-3, eps_rel=1e-3, max_iter=4000,
+                        polish=False)
+    sol_k = tk.solve_saa_qp_pallas(
+        tst, type(tdata)(*(x.float() for x in tdata)), 3, cfg, chunk=50)
+    assert float(sol_k.prim_res) < 2e-2
+    sol_x = tqp.solve_saa_qp(tst, tdata, 3, cfg)
+    A, ld, ud = dense_reference_A(st, jax.tree.map(np.asarray, data), 3)
+    p_diag, q = (np.asarray(v) for v in build_objective(st, data))
+    x_k, x_x = sol_k.x.double().numpy(), sol_x.x.numpy()
+    for x in (x_k, x_x):
+        Ax = A @ x
+        assert np.max(Ax - ud) < 2e-2 and np.max(ld - Ax) < 2e-2
+    obj = lambda v: 0.5 * np.sum(p_diag * v * v) + q @ v  # noqa: E731
+    assert abs(obj(x_k) - obj(x_x)) <= 5e-2 * (1 + abs(obj(x_x)))
+
+
+def test_solve_saa_qp_pallas_refuses_what_it_cannot_do():
+    st, data = make_problem(M=12)
+    tst = tqp.SAAQPStatic(*st[:14])
+    tdata = interop.saa_qp_data(data)
+    with pytest.raises(ValueError, match="float32"):
+        tk.solve_saa_qp_pallas(tst, tdata, 3, TSolverConfig(polish=False))
+    with pytest.raises(NotImplementedError, match="dsjit"):
+        tk.solve_saa_qp_pallas(tst, type(tdata)(*(x.float() for x in tdata)),
+                               3, TSolverConfig(polish=True))
+
