@@ -25,6 +25,7 @@
 //   2. solve: one block does the partial reduction, the rhs, the
 //      Sherman-Morrison y-block elimination, r_v Sinv, and the small-row,
 //      y-row, u, s and t updates; it writes u_t, y_t and t_t to scratch.
+//      It lives in saa_admm_common.cuh, shared with kernel B2.
 //   3. sweep2: half a warp per sample row computes zt = Gs u_t - eGy y_t -
 //      eGt t_t and applies the relax/clip/dual update to z_G, yd_G in place.
 // A cooperative persistent kernel, clusters, wgmma or TMA are later work.
@@ -34,13 +35,11 @@
 // Binding: plain C entry point saa_admm_chunk (ctypes); it returns
 // cudaGetLastError() and the caller raises if it is not 0.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "saa_admm_common.cuh"
 
 namespace {
 
 constexpr int kSweepThreads = 256;   // sweep1 / sweep2 block size
-constexpr int kSolveThreads = 1024;  // the one-block solve
 constexpr int kSamplesPerBlock = 4;  // sweep1 samples per block
 
 // Problem data, in the order of ScaledSAA's fields (ops/cuda/saa_admm.py).
@@ -54,61 +53,6 @@ struct Prob {
 };
 constexpr int kProbPtrs = 30;
 static_assert(sizeof(Prob) == kProbPtrs * sizeof(float*), "Prob is a pointer list");
-
-// Iterate, in the order of ScaledState's fields.
-struct State {
-  float *u, *s, *t, *y, *z_y, *yd_y, *z_G, *yd_G, *z_small, *yd_small;
-};
-constexpr int kStatePtrs = 10;
-static_assert(sizeof(State) == kStatePtrs * sizeof(float*), "State is a pointer list");
-
-struct Scratch {
-  float *partials;  // (nblk1, n+1): per-block u_part | sum eGt w
-  float *rowsum_y;  // (M,)
-  float *rhs_y;     // (M,)
-  float *g_y;       // (M,)
-  float *y_t;       // (M,)
-  float *vt;        // (n+2,): u_t | s_t | t_t
-};
-constexpr int kScratchPtrs = 6;
-static_assert(sizeof(Scratch) == kScratchPtrs * sizeof(float*), "Scratch is a pointer list");
-
-struct Dims {
-  int M, K, n, n_fc, nblk1;
-};
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
-}
-
-// Deterministic block-wide sum; every thread of the block must call it.
-// `red` holds at least 33 floats.
-__device__ float block_sum(float v, float* red) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  v = warp_sum(v);
-  __syncthreads();  // red may still be read by a previous call
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    float s = lane < nwarps ? red[lane] : 0.0f;
-    s = warp_sum(s);
-    if (lane == 0) red[32] = s;
-  }
-  __syncthreads();
-  return red[32];
-}
-
-__device__ __forceinline__ void row_update(float al, float& z, float& yd,
-                                           float zt, float rv, float lb,
-                                           float ub) {
-  const float z_relax = al * zt + (1.0f - al) * z;
-  const float z_next = fminf(fmaxf(z_relax + yd / rv, lb), ub);
-  yd = yd + rv * (z_relax - z_next);
-  z = z_next;
-}
 
 // ---- sweep 1: A^T contribution of the sample rows + per-sample sums ----
 __global__ void __launch_bounds__(kSweepThreads)
@@ -170,151 +114,6 @@ sweep1_kernel(Prob p, State st, Scratch sc, Dims d) {
   }
 }
 
-// ---- solve: KKT solve + every update except the sample rows ----
-__global__ void __launch_bounds__(kSolveThreads)
-solve_kernel(Prob p, State st, Scratch sc, Dims d) {
-  extern __shared__ float sh[];
-  const int M = d.M, n = d.n, n_fc = d.n_fc;
-  const int nv = n + 2, ns = n_fc + 2 + n, ncol = n + 1;
-  const int tid = threadIdx.x, NT = blockDim.x;
-  float* red = sh;            // NT + 33
-  float* up = red + NT + 33;  // n + 1: reduced u_part | sum eGt w
-  float* wsm = up + ncol;     // ns: small-row w
-  float* rv = wsm + ns;       // nv: r_v
-  float* v = rv + nv;         // nv: solution of the coupled block
-
-  const float sig = *p.sigma, al = *p.alpha_relax;
-  const float beta = *p.sm_beta, denom = *p.sm_denom;
-
-  // A. fixed-order reduction of sweep1's per-block partials
-  {
-    const int nr = NT / ncol;
-    const int r = tid / ncol, j = tid - (tid / ncol) * ncol;
-    if (r < nr) {
-      float s = 0.0f;
-      for (int b = r; b < d.nblk1; b += nr) s += sc.partials[(size_t)b * ncol + j];
-      red[tid] = s;
-    }
-    __syncthreads();
-    if (tid < ncol) {
-      float s = 0.0f;
-      for (int rr = 0; rr < nr; ++rr) s += red[rr * ncol + tid];
-      up[tid] = s;
-    }
-  }
-  // B. small-row w
-  for (int i = tid; i < ns; i += NT)
-    wsm[i] = p.rv_small[i] * st.z_small[i] - st.yd_small[i];
-  __syncthreads();
-  const float w_c = wsm[n_fc], w_s = wsm[n_fc + 1];
-
-  // C. rhs_u (final-row and control-row contributions added in order)
-  for (int j = tid; j < n; j += NT) {
-    float u_part = up[j];
-    for (int i = 0; i < n_fc; ++i) u_part = u_part + wsm[i] * p.Fs[i * n + j];
-    u_part = u_part + p.cu[j] * wsm[n_fc + 2 + j];
-    rv[j] = sig * st.u[j] - p.q_hat_u[j] + u_part;
-  }
-  // D. rhs_y per sample; sums for rhs_s and the first Sherman-Morrison
-  float a_ys = 0.0f, a_wd = 0.0f;
-  for (int m = tid; m < M; m += NT) {
-    const float w_y = p.rv_y[m] * st.z_y[m] - st.yd_y[m];
-    const float r_y =
-        sig * st.y[m] + p.cy_hat[m] * w_c - p.yd_hat[m] * w_y - sc.rowsum_y[m];
-    sc.rhs_y[m] = r_y;
-    a_ys += p.ys_hat[m] * w_y;
-    a_wd += p.wD[m] * r_y;
-  }
-  const float sum_ysw = block_sum(a_ys, red);
-  const float sum_wdr = block_sum(a_wd, red);
-  if (tid == 0) {
-    rv[n] = sig * *st.s - *p.q_hat_s + *p.cs_hat * w_c - sum_ysw -
-            *p.ss_hat * w_s;
-    rv[n + 1] = sig * *st.t + *p.ct_hat * w_c - up[n];
-  }
-  // E. g_y = (D + beta w w^T)^-1 rhs_y
-  {
-    const float coef = beta * sum_wdr / denom;
-    for (int m = tid; m < M; m += NT)
-      sc.g_y[m] = p.Dinv[m] * sc.rhs_y[m] - coef * p.wD[m];
-  }
-  __syncthreads();
-  // F. r_v -= Cbar^T g_y
-  {
-    const int nr = NT / nv;
-    const int r = tid / nv, j = tid - (tid / nv) * nv;
-    if (r < nr) {
-      float s = 0.0f;
-      for (int m = r; m < M; m += nr) s += p.Cbar[(size_t)m * nv + j] * sc.g_y[m];
-      red[tid] = s;
-    }
-    __syncthreads();
-    if (tid < nv) {
-      float s = 0.0f;
-      for (int rr = 0; rr < nr; ++rr) s += red[rr * nv + tid];
-      rv[tid] = rv[tid] - s;
-    }
-    __syncthreads();
-  }
-  // G. v = r_v Sinv
-  for (int j = tid; j < nv; j += NT) {
-    float s = 0.0f;
-    for (int i = 0; i < nv; ++i) s += rv[i] * p.Sinv[i * nv + j];
-    v[j] = s;
-    sc.vt[j] = s;
-  }
-  __syncthreads();
-  const float s_t = v[n], t_t = v[n + 1];
-  // H. y_t = (D + beta w w^T)^-1 (rhs_y - Cbar v)
-  float a2 = 0.0f;
-  for (int m = tid; m < M; m += NT) {
-    const float* crow = p.Cbar + (size_t)m * nv;
-    float cv = 0.0f;
-    for (int j = 0; j < nv; ++j) cv += crow[j] * v[j];
-    const float r2 = sc.rhs_y[m] - cv;
-    sc.g_y[m] = r2;
-    a2 += p.wD[m] * r2;
-  }
-  const float coef2 = beta * block_sum(a2, red) / denom;
-  // I. y rows: y, z_y, yd_y updates; sum cy_hat y_t for the CVaR row
-  float a_cy = 0.0f;
-  for (int m = tid; m < M; m += NT) {
-    const float y_t = p.Dinv[m] * sc.g_y[m] - coef2 * p.wD[m];
-    sc.y_t[m] = y_t;
-    a_cy += p.cy_hat[m] * y_t;
-    const float zt_y = -p.yd_hat[m] * y_t - p.ys_hat[m] * s_t;
-    st.y[m] = al * y_t + (1.0f - al) * st.y[m];
-    float z = st.z_y[m], yd = st.yd_y[m];
-    row_update(al, z, yd, zt_y, p.rv_y[m], p.lb_y[m], p.ub_y[m]);
-    st.z_y[m] = z;
-    st.yd_y[m] = yd;
-  }
-  const float zt_c = block_sum(a_cy, red) + *p.cs_hat * s_t + *p.ct_hat * t_t;
-  // J. small rows and the coupled variables
-  for (int i = tid; i < ns; i += NT) {
-    float zt;
-    if (i < n_fc) {
-      zt = 0.0f;
-      for (int j = 0; j < n; ++j) zt += p.Fs[i * n + j] * v[j];
-    } else if (i == n_fc) {
-      zt = zt_c;
-    } else if (i == n_fc + 1) {
-      zt = -*p.ss_hat * s_t;
-    } else {
-      zt = p.cu[i - n_fc - 2] * v[i - n_fc - 2];
-    }
-    float z = st.z_small[i], yd = st.yd_small[i];
-    row_update(al, z, yd, zt, p.rv_small[i], p.lb_small[i], p.ub_small[i]);
-    st.z_small[i] = z;
-    st.yd_small[i] = yd;
-  }
-  for (int j = tid; j < n; j += NT) st.u[j] = al * v[j] + (1.0f - al) * st.u[j];
-  if (tid == 0) {
-    *st.s = al * s_t + (1.0f - al) * *st.s;
-    *st.t = al * t_t + (1.0f - al) * *st.t;
-  }
-}
-
 // ---- sweep 2: zt = Gs u_t - eGy y_t - eGt t_t + in-place row update ----
 __global__ void __launch_bounds__(kSweepThreads)
 sweep2_kernel(Prob p, State st, Scratch sc, Dims d) {
@@ -355,36 +154,16 @@ extern "C" {
 // output in place. Returns cudaGetLastError() of the first failing step.
 int saa_admm_chunk(const void* const* ptrs, int n_ptrs, int M, int K, int n,
                    int n_fc, int chunk, void* stream_ptr) {
-  if (n_ptrs != kProbPtrs + 2 * kStatePtrs + kScratchPtrs)
-    return (int)cudaErrorInvalidValue;
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   Prob p;
-  const float** pp = reinterpret_cast<const float**>(&p);
-  for (int i = 0; i < kProbPtrs; ++i) pp[i] = static_cast<const float*>(ptrs[i]);
-  const void* const* in = ptrs + kProbPtrs;
   State st;
-  float** sp = reinterpret_cast<float**>(&st);
-  for (int i = 0; i < kStatePtrs; ++i)
-    sp[i] = const_cast<float*>(static_cast<const float*>(ptrs[kProbPtrs + kStatePtrs + i]));
   Scratch sc;
-  float** scp = reinterpret_cast<float**>(&sc);
-  for (int i = 0; i < kScratchPtrs; ++i)
-    scp[i] = const_cast<float*>(
-        static_cast<const float*>(ptrs[kProbPtrs + 2 * kStatePtrs + i]));
-
-  const int ns = n_fc + 2 + n;
-  const size_t sizes[kStatePtrs] = {
-      (size_t)n, 1, 1, (size_t)M, (size_t)M, (size_t)M,
-      (size_t)M * K, (size_t)M * K, (size_t)ns, (size_t)ns};
-  for (int i = 0; i < kStatePtrs; ++i) {
-    cudaError_t e = cudaMemcpyAsync(sp[i], in[i], sizes[i] * sizeof(float),
-                                    cudaMemcpyDeviceToDevice, stream);
-    if (e != cudaSuccess) return (int)e;
-  }
+  cudaError_t e0 = begin_chunk(ptrs, n_ptrs, M, K, n, n_fc, stream, p, st, sc);
+  if (e0 != cudaSuccess) return (int)e0;
 
   Dims d{M, K, n, n_fc, (M + kSamplesPerBlock - 1) / kSamplesPerBlock};
   const size_t sh1 = (size_t)(kSamplesPerBlock * K + kSamplesPerBlock + kSweepThreads) * sizeof(float);
-  const size_t sh2 = (size_t)(kSolveThreads + 33 + (n + 1) + ns + 2 * (n + 2)) * sizeof(float);
+  const size_t sh2 = solve_smem_bytes(n, n_fc);
   const size_t sh3 = (size_t)n * sizeof(float);
   const size_t rows = (size_t)M * K;
   const unsigned nblk3 = (unsigned)((rows * 16 + kSweepThreads - 1) / kSweepThreads);

@@ -13,6 +13,11 @@ of ``ops/cuda/saa_admm.py``:
   coly slots: 0 y | 1 z_y | 2 yd_y
   small rows (saa_admm.py:321-340): [0:n_fc] final | 6 cvar | 7 slack |
       [8:8+n] control  ->  [final | cvar | slack | control]
+
+The padded lane-flat layout of ``saa_admm_f.py`` (f = k*Mp + i over Kp
+rows, G2 (Kp*Mp, 128), G2T (128, Kp*Mp), colpF/colyF the colp/coly slots
+transposed) maps to the port's F layout of ``ops/cuda/saa_admm_f.py``
+(f = k*M + i, no padding).
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import torch
 from riskaversetrajopt_torch.models.drone import DroneOmega
 from riskaversetrajopt_torch.ops.admm import Scaling
 from riskaversetrajopt_torch.ops.cuda.saa_admm import ScaledSAA, ScaledState
+from riskaversetrajopt_torch.ops.cuda.saa_admm_f import ScaledSAAF, ScaledStateF
 from riskaversetrajopt_torch.ops.saa_qp import SAAQPData
 
 # f32-safe stand-in for -inf in the TPU kernel's bounds (saa_admm.py:71)
@@ -63,18 +69,11 @@ def _lower(v):
     return v
 
 
-def scaled_saa(p, dims, device="cpu") -> ScaledSAA:
-    """JAX padded ScaledSAA -> natural-layout ScaledSAA (float32).
-    `dims` is the JAX KernelDims (fields n, n_fc, M, K, ...)."""
-    n, n_fc, M, K = dims.n, dims.n_fc, dims.M, dims.K
-    a = {f: np.asarray(v) for f, v in zip(p._fields, p)}
-    Gs = a["Gs"].reshape(-1, a["Gs"].shape[-2], a["Gs"].shape[-1])
-    colp = a["colp"]
-    mk = lambda x: x[:M, :K]  # noqa: E731
+def _shared_fields(a, colp, dims):
+    """The fields both kernel layouts take alike: per-sample colp slots,
+    small rows, Fs, cu, q_hat_u, Sinv, Cbar and the scalars."""
+    n, n_fc, M = dims.n, dims.n_fc, dims.M
     out = dict(
-        Gs=Gs[:M, :K, :n],
-        eGy=mk(a["eGy"]), eGt=mk(a["eGt"]), rv_G=mk(a["rv_G"]),
-        lb_G=_lower(mk(a["lb_G"])), ub_G=mk(a["ub_G"]),
         rv_y=colp[:M, 0], lb_y=_lower(colp[:M, 1]), ub_y=colp[:M, 2],
         cy_hat=colp[:M, 4], yd_hat=colp[:M, 5], ys_hat=colp[:M, 6],
         Dinv=colp[:M, 7], wD=colp[:M, 8],
@@ -87,25 +86,79 @@ def scaled_saa(p, dims, device="cpu") -> ScaledSAA:
     for f in ("ct_hat", "cs_hat", "ss_hat", "q_hat_s", "sm_beta", "sm_denom",
               "sigma", "alpha_relax"):
         out[f] = a[f].reshape(())
-    return ScaledSAA(**{
-        f: to_tensor(out[f], device, torch.float32)
-        for f in ScaledSAA._fields
-    })
+    return out
+
+
+def _shared_state(a, coly, dims):
+    n, n_fc, M = dims.n, dims.n_fc, dims.M
+    return dict(
+        u=a["u"][0, :n], s=a["s"].reshape(()), t=a["t"].reshape(()),
+        y=coly[:M, 0], z_y=coly[:M, 1], yd_y=coly[:M, 2],
+        z_small=_small(a["z_small"], n_fc, n),
+        yd_small=_small(a["yd_small"], n_fc, n),
+    )
+
+
+def _arrays(nt):
+    return {f: np.asarray(v) for f, v in zip(nt._fields, nt)}
+
+
+def _tensors(cls, out, device):
+    return cls(**{f: to_tensor(out[f], device, torch.float32)
+                  for f in cls._fields})
+
+
+def scaled_saa(p, dims, device="cpu") -> ScaledSAA:
+    """JAX padded ScaledSAA -> natural-layout ScaledSAA (float32).
+    `dims` is the JAX KernelDims (fields n, n_fc, M, K, ...)."""
+    n, M, K = dims.n, dims.M, dims.K
+    a = _arrays(p)
+    Gs = a["Gs"].reshape(-1, a["Gs"].shape[-2], a["Gs"].shape[-1])
+    mk = lambda x: x[:M, :K]  # noqa: E731
+    out = dict(
+        Gs=Gs[:M, :K, :n],
+        eGy=mk(a["eGy"]), eGt=mk(a["eGt"]), rv_G=mk(a["rv_G"]),
+        lb_G=_lower(mk(a["lb_G"])), ub_G=mk(a["ub_G"]),
+        **_shared_fields(a, a["colp"], dims),
+    )
+    return _tensors(ScaledSAA, out, device)
 
 
 def scaled_state(s, dims, device="cpu") -> ScaledState:
     """JAX padded ScaledState -> natural-layout ScaledState (float32)."""
-    n, n_fc, M, K = dims.n, dims.n_fc, dims.M, dims.K
-    a = {f: np.asarray(v) for f, v in zip(s._fields, s)}
-    coly = a["coly"]
+    M, K = dims.M, dims.K
+    a = _arrays(s)
+    out = dict(z_G=a["z_G"][:M, :K], yd_G=a["yd_G"][:M, :K],
+               **_shared_state(a, a["coly"], dims))
+    return _tensors(ScaledState, out, device)
+
+
+def _f_rows(v, dims):
+    """JAX (1, Kp*Mp) flat rows -> port (K*M,) with f = k*M + i."""
+    return v.reshape(-1, dims.Mp)[: dims.K, : dims.M].reshape(-1)
+
+
+def scaled_saa_f(pf, dims, device="cpu") -> ScaledSAAF:
+    """JAX padded ScaledSAAF -> the port's F-layout ScaledSAAF (float32).
+    `dims` is the JAX KernelDims the layout was built with."""
+    n, M, K = dims.n, dims.M, dims.K
+    a = _arrays(pf)
+    G2 = a["G2"].reshape(-1, dims.Mp, a["G2"].shape[-1])[:K, :M, :n]
+    G2 = G2.reshape(K * M, n)
     out = dict(
-        u=a["u"][0, :n], s=a["s"].reshape(()), t=a["t"].reshape(()),
-        y=coly[:M, 0], z_y=coly[:M, 1], yd_y=coly[:M, 2],
-        z_G=a["z_G"][:M, :K], yd_G=a["yd_G"][:M, :K],
-        z_small=_small(a["z_small"], n_fc, n),
-        yd_small=_small(a["yd_small"], n_fc, n),
+        G2=G2, G2T=G2.T,
+        eGy_f=_f_rows(a["eGy_f"], dims), eGt_f=_f_rows(a["eGt_f"], dims),
+        rvG_f=_f_rows(a["rvG_f"], dims), lbG_f=_lower(_f_rows(a["lbG_f"], dims)),
+        ubG_f=_f_rows(a["ubG_f"], dims),
+        **_shared_fields(a, a["colpF"].T, dims),
     )
-    return ScaledState(**{
-        f: to_tensor(out[f], device, torch.float32)
-        for f in ScaledState._fields
-    })
+    return _tensors(ScaledSAAF, out, device)
+
+
+def scaled_state_f(sf, dims, device="cpu") -> ScaledStateF:
+    """JAX padded ScaledStateF -> the port's F-layout ScaledStateF
+    (float32)."""
+    a = _arrays(sf)
+    out = dict(zG_f=_f_rows(a["zG_f"], dims), ydG_f=_f_rows(a["ydG_f"], dims),
+               **_shared_state(a, a["colyF"].T, dims))
+    return _tensors(ScaledStateF, out, device)

@@ -16,6 +16,20 @@ import torch
 Omega = Any  # per-sample uncertainty tuple of tensors
 
 
+def resolve_device(device) -> torch.device:
+    """The device a model or driver runs on: the card unless the caller names
+    another. With no device given and no card present it raises rather than
+    running on the host."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port runs on the card by default; pass "
+            "device='cpu' to run on the host"
+        )
+    return torch.device("cuda")
+
+
 class SAAModel(Protocol):
     n_x: int
     n_u: int

@@ -14,6 +14,7 @@ from typing import NamedTuple
 import torch
 
 from riskaversetrajopt_torch.core.config import DroneScenario, SCPConfig
+from riskaversetrajopt_torch.models.base import resolve_device
 
 
 class DroneOmega(NamedTuple):
@@ -27,10 +28,11 @@ class DroneOmega(NamedTuple):
 class DroneModel:
     """SAA drone model. Reference: drone/drone_risk.py Model (lines 70-213).
 
-    Array constants live on ``device`` in ``dtype``; ``to`` returns a copy
+    Array constants live on ``device`` (the card unless the caller passes
+    another, e.g. ``device="cpu"``) in ``dtype``; ``to`` returns a copy
     converted to another device or dtype."""
 
-    def __init__(self, scn: DroneScenario = DroneScenario(), device="cpu",
+    def __init__(self, scn: DroneScenario = DroneScenario(), device=None,
                  dtype=torch.float64):
         self.scn = scn
         self.n_x = scn.n_x
@@ -44,7 +46,7 @@ class DroneModel:
         self.row_scale = 0.01
         # slack objective weight (drone_risk.py:388-390)
         self.slack_penalty = 10000.0
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.dtype = dtype
         kw = dict(device=self.device, dtype=dtype)
         self._fb_gain = scn.feedback_gain.to(**kw)

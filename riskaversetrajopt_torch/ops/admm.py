@@ -53,6 +53,9 @@ class QPSolution(NamedTuple):
     # as rho0 when SolverConfig.rho_warm_start is on (OSQP keeps rho in its
     # workspace across the reference's update()/solve() loop)
     rho: Optional[torch.Tensor] = None
+    # under cfg.polish: whether the polished iterate replaced the ADMM one
+    # (it does only if it lowers both residuals)
+    polished: bool = False
 
 
 class Scaling(NamedTuple):
@@ -357,8 +360,9 @@ def admm_solve(
     x_u = D * x
     y_u = E * y / c
     z_u = z / E
+    polished = False
     if cfg.polish:
-        x_u, y_u, z_u = _polish(ops, q, l, u, x_u, y_u, z_u, cfg)
+        x_u, y_u, z_u, polished = _polish(ops, q, l, u, x_u, y_u, z_u, cfg)
 
     return QPSolution(
         x=x_u,
@@ -371,6 +375,7 @@ def admm_solve(
         prim_infeasible=bool(prim_inf),
         dual_infeasible=bool(dual_inf),
         rho=rho,
+        polished=polished,
     )
 
 
@@ -378,7 +383,8 @@ def _polish(ops, q, l, u, x, y, z, cfg):
     """Static-shape analog of OSQP polishing (admm.py:612-729): solve the
     KKT system with the active rows treated as stiff equalities (penalty
     factor as preconditioner + exact-residual refinement), then an
-    active-set correction pass; accepted only if both residuals improve."""
+    active-set correction pass; accepted only if both residuals improve.
+    Returns x, y, z and whether the polished iterate was accepted."""
     dtype = q.dtype
     n = q.shape[0]
     kw = dict(dtype=dtype, device=q.device)
@@ -435,4 +441,4 @@ def _polish(ops, q, l, u, x, y, z, cfg):
     p1, d1 = resid(x_pol, y_pol, z_pol)
     better = (p1 <= torch.clamp(p0, min=1e-10)) & (d1 <= torch.clamp(d0, min=1e-10))
     pick = lambda a, bb: torch.where(better, a, bb)  # noqa: E731
-    return pick(x_pol, x), pick(y_pol, y), pick(z_pol, z)
+    return pick(x_pol, x), pick(y_pol, y), pick(z_pol, z), bool(better)

@@ -3,8 +3,9 @@
 Each ``riskaversetrajopt_torch/csrc/<name>.cu`` exposes a plain C interface
 and is compiled at first use by ``nvcc`` into a shared library under
 ``build/torch_kernels/`` at the repository root, named by a hash of its
-source and flags so an edited source rebuilds. The library is loaded with
-ctypes. Nothing here runs at import time.
+source, the shared headers ``csrc/*.cuh`` and the flags, so an edited source
+or header rebuilds. The library is loaded with ctypes. Nothing here runs at
+import time.
 """
 
 from __future__ import annotations
@@ -41,6 +42,7 @@ def find_nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{tag}.so"
 

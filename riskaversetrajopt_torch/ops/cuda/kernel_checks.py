@@ -1,0 +1,155 @@
+"""How the hand-written kernels are held to their plain PyTorch versions;
+shared by chip_smoke.py and tests/test_torch_cuda_kernels.py.
+
+- `state_err`: max over the fields of two iterates of |a - b| / (1 + |b|),
+  the measure every kernel-vs-plain comparison of whole iterations is held
+  to (2e-2: float32 sums in another order, amplified by the 1e3 rho of the
+  equality rows).
+- `step_err_f`: one iteration of kernel B2 against one plain iteration from
+  the same state, in that measure. At sweep precision "default" both round
+  u_t to bf16 for sweep 2, but each computes u_t in float32 with its own
+  order of sums; where the two round to different bf16 values (and only
+  there) the sample rows may move by that bf16 step, and that much is
+  allowed for.
+- `sweep_errs_f` / `check_sweeps_f`: the two sweeps of one B2 iteration
+  against float64 arithmetic of each sweep precision on the kernel's own
+  operands. The state measure cannot tell the precisions apart: the
+  solve's float32 noise, amplified by rho, reads up to ~1e-2 from one state
+  whatever the precision. This one can: each sweep must lie within
+  SWEEP_TOL of its own precision's arithmetic, and at most SWEEP_RATIO as
+  far from it as from any other precision's, so a kernel that computes
+  another precision than it was asked for fails.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from riskaversetrajopt_torch.ops.cuda.saa_admm_f import (
+    ScaledSAAF,
+    ScaledStateF,
+    StepF,
+    step_ref_f,
+)
+from riskaversetrajopt_torch.ops.saa_qp import SWEEP_PRECISIONS, _bf16
+
+# `sweep_errs_f` of a step at its own precision: at most SWEEP_TOL, and at
+# most SWEEP_RATIO times its error at any other precision. Float32 rounding
+# of the sums reads 1e-8 (sweep 2) to 1e-6 (sweep 1 of a plain float32
+# matmul); "high" and "highest" differ by ~1e-6 (sweep 2) and ~3e-6 (sweep
+# 1), "default" and the others by ~1e-3.
+SWEEP_TOL, SWEEP_RATIO = 1e-5, 0.5
+
+
+def state_err(a, b, allow=None):
+    """Max over fields of |a - b| / (1 + |b|), and of |a - b|, after taking
+    `allow[name]` (elementwise) off the difference of the fields it names.
+    Raises if a field of `a` is not finite."""
+    rel = abs_ = 0.0
+    for name, x, y in zip(b._fields, a, b):
+        if not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"field {name} is not finite")
+        diff = torch.abs(x - y)
+        if allow and name in allow:
+            diff = torch.clamp(diff - allow[name], min=0.0)
+        rel = max(rel, float(torch.max(diff / (1.0 + torch.abs(y)))))
+        abs_ = max(abs_, float(torch.max(diff)))
+    return rel, abs_
+
+
+def step_err_f(pf: ScaledSAAF, s: ScaledStateF, step: StepF, d,
+               precision: str):
+    """`state_err` of one iteration `step` from state `s` (admm_step_f)
+    against one plain iteration from `s` at `precision`. At "default" a
+    sample row f may differ by alpha sum_j |G2[f, j]| |bf16(u_k[j]) -
+    bf16(u_p[j])| in z (2 rv times that in yd), u_k and u_p the two u_t:
+    zero wherever both round u_t alike."""
+    ref = step_ref_f(pf, s, d, precision)
+    allow = None
+    if precision == "default":
+        du = torch.abs(_bf16(step.v[: d.n]) - _bf16(ref.v[: d.n]))
+        dzt = pf.alpha_relax * (torch.abs(pf.G2) @ du)
+        allow = {"zG_f": dzt, "ydG_f": 2 * pf.rvG_f * dzt}
+    return state_err(step.state, ref.state, allow)
+
+
+def _parts(x, precision):
+    """x (float32) as `precision` splits it for its products, in float64:
+    [x] at "highest", [bf16 hi] at "default", [hi, bf16 lo] at "high"."""
+    if precision == "highest":
+        return [x.double()]
+    hi = _bf16(x)
+    if precision == "default":
+        return [hi.double()]
+    return [hi.double(), _bf16(x - hi).double()]
+
+
+def _product(a, b, precision):
+    """a @ b as `precision` forms it, exactly (float64): the products of the
+    parts, hi*hi + hi*lo + lo*hi at "high"."""
+    pa, pb = _parts(a, precision), _parts(b, precision)
+    return sum(x @ y for i, x in enumerate(pa) for j, y in enumerate(pb)
+               if i + j < 2)
+
+
+def _rms(x):
+    return float(torch.sqrt(torch.mean(x * x)))
+
+
+def sweep_errs_f(pf: ScaledSAAF, s: ScaledStateF, step: StepF, d):
+    """For each sweep precision Q, the errors (sweep 1, sweep 2) of one B2
+    iteration `step` from state `s` against Q's arithmetic, in float64, on
+    the operands the step itself used:
+      sweep 1: the sum of step.u_part against w_f @ G2 at Q, w_f = rv z - yd
+        of `s` (bit for bit the kernel's), per column over the root sum of
+        squares of the terms w_f G2[f, j]; RMS over the columns;
+      sweep 2: the sample rows of step.state against the relax/clip/dual
+        update of zt = G2 u_t at Q - eGy y_t - eGt t_t, with the step's own
+        u_t, y_t, t_t; z over the sum of the magnitudes that enter it, yd
+        over rv times that plus |yd|; RMS over the rows."""
+    f64 = torch.float64
+    n, K = d.n, d.K
+    w = pf.rvG_f * s.zG_f - s.ydG_f
+    G = pf.G2
+    rss1 = torch.sqrt((w.to(f64) ** 2) @ (G.to(f64) ** 2))
+    u1 = step.u_part.to(f64).sum(0)
+
+    u_t, t_t = step.v[:n], step.v[n + 1].to(f64)
+    y_rows = step.y_t.repeat(K).to(f64)
+    eGy, eGt = pf.eGy_f.to(f64), pf.eGt_f.to(f64)
+    al = pf.alpha_relax.to(f64)
+    z, yd = s.zG_f.to(f64), s.ydG_f.to(f64)
+    rv, lb, ub = (x.to(f64) for x in (pf.rvG_f, pf.lbG_f, pf.ubG_f))
+    scale_z = (al * (torch.abs(G.to(f64)) @ torch.abs(u_t.to(f64))
+                     + torch.abs(eGy * y_rows) + torch.abs(eGt * t_t))
+               + torch.abs((1 - al) * z) + torch.abs(yd / rv))
+    scale_yd = rv * scale_z + torch.abs(yd)
+    # a zero scale means zero terms, which every arithmetic sums to 0
+    rss1, scale_z, scale_yd = (torch.clamp(x, min=1e-300)
+                               for x in (rss1, scale_z, scale_yd))
+    z_k, yd_k = step.state.zG_f.to(f64), step.state.ydG_f.to(f64)
+
+    errs = {}
+    for q in SWEEP_PRECISIONS:
+        e1 = (u1 - _product(w, G, q)) / rss1
+        zt = _product(G, u_t, q) - eGy * y_rows - eGt * t_t
+        z_relax = al * zt + (1 - al) * z
+        z_q = torch.clamp(z_relax + yd / rv, lb, ub)
+        yd_q = yd + rv * (z_relax - z_q)
+        e2 = torch.cat([(z_k - z_q) / scale_z, (yd_k - yd_q) / scale_yd])
+        errs[q] = (_rms(e1), _rms(e2))
+    return errs
+
+
+def check_sweeps_f(errs, precision: str):
+    """Raise unless each sweep of `errs` (sweep_errs_f of a step at
+    `precision`) is within SWEEP_TOL of `precision`'s arithmetic and at most
+    SWEEP_RATIO as far from it as from every other precision's."""
+    for i, sweep in enumerate(("sweep 1", "sweep 2")):
+        own = errs[precision][i]
+        other = min(e[i] for q, e in errs.items() if q != precision)
+        if not (own <= SWEEP_TOL and own <= SWEEP_RATIO * other):
+            raise AssertionError(
+                f"{sweep} at {precision!r} reads {own:.3e} from its own "
+                f"arithmetic and {other:.3e} from the nearest other "
+                f"precision's (limits {SWEEP_TOL:.0e}, ratio {SWEEP_RATIO})")

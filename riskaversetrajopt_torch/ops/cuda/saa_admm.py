@@ -326,31 +326,39 @@ def one_iter_ref(p: ScaledSAA, s: ScaledState, d: KernelDims) -> ScaledState:
 
 
 def _check_kernel_inputs(p: ScaledSAA, state: ScaledState, d: KernelDims):
-    n, n_fc, M, K = d
-    ns = n_fc + 2 + n
-    shapes = {
-        "Gs": (M, K, n), "eGy": (M, K), "eGt": (M, K), "rv_G": (M, K),
-        "lb_G": (M, K), "ub_G": (M, K), "rv_small": (ns,), "lb_small": (ns,),
-        "ub_small": (ns,), "Fs": (n_fc, n), "cu": (n,), "q_hat_u": (n,),
-        "Sinv": (n + 2, n + 2), "Cbar": (M, n + 2),
-        "u": (n,), "s": (), "t": (), "z_G": (M, K), "yd_G": (M, K),
-        "z_small": (ns,), "yd_small": (ns,),
-    }
-    for name in ("rv_y", "lb_y", "ub_y", "cy_hat", "yd_hat", "ys_hat",
-                 "Dinv", "wD", "y", "z_y", "yd_y"):
+    MK = (d.M, d.K)
+    check_tensors("admm_chunk", p, state, d, {
+        "Gs": (*MK, d.n), "eGy": MK, "eGt": MK, "rv_G": MK, "lb_G": MK,
+        "ub_G": MK, "z_G": MK, "yd_G": MK,
+    })
+
+
+def check_tensors(who: str, p, state, d: KernelDims, sample_rows: dict):
+    """Raise unless every field of `p` and `state` is a contiguous float32
+    tensor on p's device of its shape: `sample_rows` gives the shapes of the
+    layout's G and sample-row fields; the others are the same in both
+    layouts (scalars are ())."""
+    n, n_fc, M = d.n, d.n_fc, d.M
+    ns = (n_fc + 2 + n,)
+    shapes = dict(
+        rv_small=ns, lb_small=ns, ub_small=ns, z_small=ns, yd_small=ns,
+        Fs=(n_fc, n), cu=(n,), q_hat_u=(n,), u=(n,), Sinv=(n + 2, n + 2),
+        Cbar=(M, n + 2), **sample_rows,
+    )
+    for name in ("rv_y", "lb_y", "ub_y", "cy_hat", "yd_hat", "ys_hat", "Dinv",
+                 "wD", "y", "z_y", "yd_y"):
         shapes[name] = (M,)
-    device = p.Gs.device
-    fields = list(zip(p._fields, p)) + list(zip(state._fields, state))
-    for name, x in fields:
+    device = p[0].device
+    for name, x in list(zip(p._fields, p)) + list(zip(state._fields, state)):
         want = shapes.get(name, ())
         if x.device != device or x.dtype != torch.float32:
             raise ValueError(
-                f"admm_chunk: {name} must be float32 on {device}, got "
+                f"{who}: {name} must be float32 on {device}, got "
                 f"{x.dtype} on {x.device}"
             )
         if tuple(x.shape) != want or not x.is_contiguous():
             raise ValueError(
-                f"admm_chunk: {name} must be a contiguous {want} tensor, "
+                f"{who}: {name} must be a contiguous {want} tensor, "
                 f"got {tuple(x.shape)} (contiguous={x.is_contiguous()})"
             )
 
@@ -463,34 +471,51 @@ def flat_to_state(x, z, yd, st: SAAQPStatic) -> ScaledState:
 # ---------------------------------------------------------------------------
 
 
-def solve_saa_qp_pallas(
+class _Natural:
+    """How the chunked solve talks to kernel B1: it takes the natural-layout
+    structure and state as they are."""
+
+    @staticmethod
+    def problem(p: ScaledSAA, d: KernelDims, prev=None) -> ScaledSAA:
+        return p
+
+    @staticmethod
+    def state_in(s: ScaledState, d: KernelDims) -> ScaledState:
+        return s
+
+    @staticmethod
+    def state_out(s: ScaledState, d: KernelDims) -> ScaledState:
+        return s
+
+    @staticmethod
+    def run(p: ScaledSAA, s: ScaledState, d: KernelDims, chunk: int, cfg):
+        return admm_chunk(p, s, d, chunk)
+
+
+def solve_chunked(
     st: SAAQPStatic,
     data: SAAQPData,
     scp_iter: int,
     cfg,
+    layout,
     x0=None,
     y0=None,
     ruiz_iters: int = 5,
     chunk: int = 100,
     rho0=None,
 ) -> admm_mod.QPSolution:
-    """OSQP-semantics solve of the structured SAA QP with the fused kernel
-    (saa_admm.py:907-1061): `chunk` ADMM iterations per kernel call,
-    unscaled-residual termination checked between chunks, adaptive rho by
-    re-forming the scaled structure. Float32 only.
+    """OSQP-semantics solve of the structured SAA QP with a fused kernel
+    (saa_admm.py:907-1061, saa_admm_f.py:443-593): `chunk` ADMM iterations
+    per kernel call, unscaled-residual termination checked between chunks,
+    adaptive rho by re-forming the scaled structure, and under cfg.polish
+    the active-set polish of ops/admm.py on the unscaled iterate (its
+    float32 factorization is the compensated one). Float32 only.
 
-    Polish factorizes the float32 operator, which needs the compensated
-    formation of ops/dsjit.py (not ported yet), so cfg.polish raises before
-    any iteration runs."""
+    `layout` maps the natural scaled structure and state to the kernel's
+    (`problem`, `state_in`, `state_out`) and runs one chunk (`run`)."""
     if data.G.dtype != torch.float32:
         raise ValueError(
             f"the fused-kernel ADMM solves float32 problems; got {data.G.dtype}"
-        )
-    if cfg.polish:
-        raise NotImplementedError(
-            "polish of a float32 SAA QP factorizes with the compensated "
-            "reductions of ops/dsjit.py, which are not ported yet (ROADMAP "
-            "Queue A); pass SolverConfig(polish=False)"
         )
     d = kernel_dims(st)
     f32 = torch.float32
@@ -505,6 +530,7 @@ def solve_saa_qp_pallas(
     )
     ruf = float(cfg.rho_update_factor)
     p, (D, E, c_cost) = scaled_structure(st, data, scp_iter, scaling, rho, cfg)
+    kp = layout.problem(p, d)
     sops = admm_mod.ScaledOps(ops, scaling)
 
     if x0 is None:
@@ -514,13 +540,13 @@ def solve_saa_qp_pallas(
         ybar = c_cost * y0.to(f32) / E
         zbar = torch.clamp(sops.matvec_A(xbar), E * l, E * u)
         state = flat_to_state(xbar, zbar, ybar, st)
+    state = layout.state_in(state, d)
 
     q_norm = torch.amax(torch.abs(q))
     qs_v = c_cost * D * q
     amax = lambda v: torch.amax(torch.abs(v))  # noqa: E731
 
-    def residuals(state):
-        xb, zb, yb = state_to_flat(state, d)
+    def residuals(xb, zb, yb):
         x_u = D * xb
         z_u = zb / E
         y_u = E * yb / c_cost
@@ -548,8 +574,9 @@ def solve_saa_qp_pallas(
     done = False
     prim = dual = torch.tensor(float("inf"), dtype=f32, device=q.device)
     while not done and it < cfg.max_iter:
-        state = admm_chunk(p, state, d, chunk)
-        prim, dual, ok, ratio = residuals(state)
+        state = layout.run(kp, state, d, chunk, cfg)
+        prim, dual, ok, ratio = residuals(
+            *state_to_flat(layout.state_out(state, d), d))
         if cfg.adaptive_rho:
             rho_new = torch.clamp(rho * torch.sqrt(ratio), 1e-6, 1e6)
             do_update = ((rho_new > ruf * rho) | (rho_new < rho / ruf)) & ~ok
@@ -557,13 +584,35 @@ def solve_saa_qp_pallas(
             if update:
                 rho = rho_new
                 p = scaled_structure(st, data, scp_iter, scaling, rho, cfg)[0]
+                kp = layout.problem(p, d, prev=kp)
         else:
             done = bool(ok)
         it += chunk
 
-    xb, zb, yb = state_to_flat(state, d)
+    xb, zb, yb = state_to_flat(layout.state_out(state, d), d)
+    x_u, y_u, z_u = D * xb, E * yb / c_cost, zb / E
+    polished = False
+    if cfg.polish:
+        x_u, y_u, z_u, polished = admm_mod._polish(ops, q, l, u, x_u, y_u,
+                                                   z_u, cfg)
     return admm_mod.QPSolution(
-        x=D * xb, y=E * yb / c_cost, z=zb / E, iters=it, prim_res=prim,
-        dual_res=dual,
-        solved=bool(done), rho=rho,
+        x=x_u, y=y_u, z=z_u, iters=it, prim_res=prim, dual_res=dual,
+        solved=bool(done), rho=rho, polished=polished,
     )
+
+
+def solve_saa_qp_pallas(
+    st: SAAQPStatic,
+    data: SAAQPData,
+    scp_iter: int,
+    cfg,
+    x0=None,
+    y0=None,
+    ruiz_iters: int = 5,
+    chunk: int = 100,
+    rho0=None,
+) -> admm_mod.QPSolution:
+    """The '_admm-pallas' solve (saa_admm.py:907-1061): `solve_chunked`
+    with kernel B1, 100 iterations per call. Float32 only."""
+    return solve_chunked(st, data, scp_iter, cfg, _Natural, x0=x0, y0=y0,
+                         ruiz_iters=ruiz_iters, chunk=chunk, rho0=rho0)

@@ -16,8 +16,41 @@ from typing import NamedTuple
 import torch
 
 from riskaversetrajopt_torch.core.config import SolverConfig
-from riskaversetrajopt_torch.ops import admm
+from riskaversetrajopt_torch.ops import admm, dsjit
 from riskaversetrajopt_torch.ops.rollout import SampleLinearization
+
+SWEEP_PRECISIONS = ("highest", "high", "default")
+
+
+def check_sweep_precision(precision: str):
+    if precision not in SWEEP_PRECISIONS:
+        raise ValueError(f"sweep_precision must be one of {SWEEP_PRECISIONS}, "
+                         f"got {precision!r}")
+
+
+def _bf16(x):
+    """x rounded to the nearest bfloat16, kept in x's type."""
+    return x.to(torch.bfloat16).to(x.dtype)
+
+
+def sweep_matmul(a, b, precision="highest"):
+    """a @ b for the G-sweeps at a TPU matmul precision
+    (core/config.py:124-131 of the JAX package), for float32 operands:
+      "highest": exact float32 products, float32 accumulation;
+      "high":    bf16x3, each operand split into a bf16 hi part and a bf16
+                 lo part, hi*hi + hi*lo + lo*hi accumulated in float32;
+      "default": operands rounded to bf16, float32 accumulation.
+    A product of two bf16 values is exact in float32, so float32 matmuls of
+    the rounded parts (TF32 off) give these meanings on every device.
+    Float64 operands are always multiplied exactly."""
+    check_sweep_precision(precision)
+    if precision == "highest" or a.dtype != torch.float32:
+        return a @ b
+    a_hi, b_hi = _bf16(a), _bf16(b)
+    if precision == "default":
+        return a_hi @ b_hi
+    a_lo, b_lo = _bf16(a - a_hi), _bf16(b - b_hi)
+    return (a_hi @ b_hi + a_hi @ b_lo) + a_lo @ b_hi
 
 
 class SAAQPStatic(NamedTuple):
@@ -169,14 +202,19 @@ class SAAQPOps:
     G-sweeps a pass) or "factored" (residual against the stored Schur
     blocks). kkt_chol_inverse: apply the Schur solve through an explicit
     inverse formed once per factorization. factorize_compensated: None =
-    auto (on for float32); compensated formation needs the double-single
-    reductions of ops/dsjit.py, which the port does not have yet, so
-    `factorize` raises for it."""
+    auto (on for float32): every reduction of the factorization over the M
+    sample axis goes through the double-single pairwise sums of
+    ops/dsjit.py. sweep_precision: the precision of the per-iteration
+    G-sweeps in matvec_A / rmatvec_A (`sweep_matmul`); the factorization
+    stays exact."""
 
     def __init__(self, st: SAAQPStatic, data: SAAQPData, scp_iter: int,
                  kkt_refine_iters=1, kkt_refine_mode="true",
-                 factorize_compensated=None, kkt_chol_inverse=False):
+                 factorize_compensated=None, sweep_precision="highest",
+                 kkt_chol_inverse=False):
+        check_sweep_precision(sweep_precision)
         self.st = st
+        self.sweep_precision = sweep_precision
         self.data = data
         self.kkt_refine_mode = kkt_refine_mode
         self.kkt_chol_inverse = kkt_chol_inverse
@@ -224,7 +262,7 @@ class SAAQPOps:
         # (car/driving.py:341-342, drone/drone_risk.py:336-337)
         r_c = sc.c * (torch.sum(y) + s + self.Malpha * t)
         r_y = sc.y * (-y - s)
-        Gu = self.data.G @ u
+        Gu = sweep_matmul(self.data.G, u, self.sweep_precision)
         r_G = sc.g * m * (Gu - sc.gy * (y[:, None] + t))
         r_s = sc.s * (-s)
         return torch.cat(
@@ -236,7 +274,10 @@ class SAAQPOps:
         w_f, w_c, w_y, w_G, w_s, w_u = self._split_w(w)
         wG = sc.g * m * w_G  # (M, K) effective sample-row weights
         G = self.data.G
-        u_part = self.data.F.T @ w_f + wG.reshape(-1) @ G.reshape(-1, st.n) + w_u
+        u_part = (self.data.F.T @ w_f
+                  + sweep_matmul(wG.reshape(-1), G.reshape(-1, st.n),
+                                 self.sweep_precision)
+                  + w_u)
         row_sums = torch.sum(wG, dim=1)  # (M,)
         y_part = sc.c * w_c - sc.y * w_y - sc.gy * row_sums
         s_part = sc.c * w_c - torch.sum(sc.y * w_y) - sc.s * w_s
@@ -299,20 +340,27 @@ class SAAQPOps:
           D_i = sigma_y_i + rho_y_i*sc_y_i^2 + gy^2 m^2 sum_k rho_G_ik
           beta = rho_c * sc_c^2
         The coupled block v = (u, s, t) is solved densely after the
-        Sherman-Morrison elimination of y."""
-        if self.factorize_compensated:
-            raise NotImplementedError(
-                "compensated factor formation (SAAQPOps with float32 data) "
-                "needs the double-single reductions of ops/dsjit.py, which "
-                "are not ported yet (ROADMAP.md, Queue A); pass "
-                "factorize_compensated=False or use float64"
-            )
+        Sherman-Morrison elimination of y.
+
+        Compensated formation (saa_qp.py:424-516 of the JAX package): every
+        reduction over the M sample axis is a double-single pairwise sum;
+        the per-sample contractions over K stay plain (K ~ 60 terms, a few
+        ulps), it is the M = 1000-term accumulation that compensation
+        removes. Cost: one (M, n, n) intermediate and log2(M) folds, paid
+        at refactorization only."""
         st, sc, m = self.st, self.scales, self.m
         data = self.data
         n, M = st.n, st.M
         rho_f, rho_c, rho_y, rho_G, rho_s, rho_u = self._split_w(rho_vec)
         sigma_u, sigma_y, sigma_s, sigma_t = self._split_z(sigma_vec)
         dtype, device = self.dtype, self.device
+        comp = self.factorize_compensated
+
+        def msum(x):
+            """Sum over the leading M axis (compensated when enabled)."""
+            if comp:
+                return dsjit.ds_round(*dsjit.sum1_ds(x, axis=0))
+            return torch.sum(x, dim=0)
 
         g2 = (sc.g * m) ** 2  # effective squared sample-row scale
         wG = g2 * rho_G  # (M, K)
@@ -323,7 +371,10 @@ class SAAQPOps:
         beta = rho_c * sc.c**2
 
         # --- coupled block N_vv (v = [u, s, t]) ---
-        B = torch.einsum("mkn,mk,mkp->np", data.G, wG, data.G)
+        if comp:
+            B = msum(torch.einsum("mkn,mk,mkp->mnp", data.G, wG, data.G))
+        else:
+            B = torch.einsum("mkn,mk,mkp->np", data.G, wG, data.G)
         N_uu = (
             torch.diag(cost_scale * self.p_diag[:n] + sigma_u + rho_u)
             + data.F.T @ (rho_f[:, None] * data.F)
@@ -332,16 +383,16 @@ class SAAQPOps:
         # per-sample rows G_i^T wG_i (M, n): reduced over M for the u-t
         # coupling, kept per-sample as the y-v coupling C_u below
         GtwG = torch.einsum("mkn,mk->mn", data.G, wG)
-        N_ut = -sc.gy * torch.sum(GtwG, dim=0)
+        N_ut = -sc.gy * msum(GtwG)
         # ss: sigma_s + c*P_ss + sum_i rho_y sc_y^2 + rho_s sc_s^2 + beta
         N_ss = (
             cost_scale * self.p_diag[n + M]
             + sigma_s
-            + torch.sum(rho_y * sc.y**2)
+            + msum(rho_y * sc.y**2)
             + rho_s * sc.s**2
             + beta
         )
-        N_tt = sigma_t + beta * self.Malpha**2 + sc.gy**2 * torch.sum(rowsum_wG)
+        N_tt = sigma_t + beta * self.Malpha**2 + sc.gy**2 * msum(rowsum_wG)
         N_st = beta * self.Malpha
 
         N_vv = torch.zeros(n + 2, n + 2, dtype=dtype, device=device)
@@ -362,9 +413,13 @@ class SAAQPOps:
         # --- Schur complement S = N_vv - C^T Nyy^-1 C via Sherman-Morrison ---
         Dinv = 1.0 / D
         DinvC = Dinv[:, None] * C
-        CtDinvC = C.T @ DinvC
-        one_DinvC = torch.sum(DinvC, dim=0)
-        denom = 1.0 + beta * torch.sum(Dinv)
+        if comp:
+            p, e = dsjit.two_prod(C[:, :, None], DinvC[:, None, :])
+            CtDinvC = dsjit.ds_round(*dsjit.ds_sum(p, e, axis=0))
+        else:
+            CtDinvC = C.T @ DinvC
+        one_DinvC = msum(DinvC)
+        denom = 1.0 + beta * msum(Dinv)
         S = N_vv - (CtDinvC - (beta / denom) * torch.outer(one_DinvC, one_DinvC))
         chol_S = _jittered_cholesky(S)
         if self.kkt_chol_inverse:
@@ -373,8 +428,10 @@ class SAAQPOps:
             S_op = torch.linalg.solve_triangular(chol_S.T, t1, upper=True)
         else:
             S_op = chol_S
-        # the Sherman-Morrison denominator is loop-invariant per factorization
-        return (S_op, C, D, beta, N_vv, denom)
+        # the Sherman-Morrison denominator of the y-block solves is
+        # loop-invariant per factorization (a plain sum, as in JAX)
+        denom_yy = 1.0 + beta * torch.sum(Dinv)
+        return (S_op, C, D, beta, N_vv, denom_yy)
 
     def _solve_yy(self, D, beta, r, denom):
         """(D + beta 11^T)^-1 r via Sherman-Morrison."""
@@ -448,18 +505,12 @@ def _jittered_cholesky(S):
 
 def make_ops(st: SAAQPStatic, data: SAAQPData, scp_iter: int,
              cfg: SolverConfig) -> SAAQPOps:
-    """SAAQPOps carrying cfg's KKT knobs (solve_saa_qp's construction).
-
-    The sweeps always run in full precision (TF32 stays off), so the only
-    sweep_precision the port takes is "highest"."""
-    if cfg.sweep_precision != "highest":
-        raise ValueError(
-            f"sweep_precision={cfg.sweep_precision!r} is not ported; the "
-            "port's G-sweeps run in full float precision ('highest')"
-        )
+    """SAAQPOps carrying cfg's KKT and sweep knobs (solve_saa_qp's
+    construction)."""
     return SAAQPOps(
         st, data, scp_iter, kkt_refine_iters=cfg.kkt_refine_iters,
         kkt_refine_mode=cfg.kkt_refine_mode,
+        sweep_precision=cfg.sweep_precision,
         kkt_chol_inverse=cfg.kkt_chol_inverse,
     )
 

@@ -5,9 +5,11 @@ iteration = linearize (batched rollout + forward-mode Jacobians) + pack
 (structured epigraph) + ADMM solve, warm-started from the previous QP. The
 loop is a Python loop over iterations; the iterates stay on the device.
 
-Backends: 'admm' (the structured ADMM of ops/admm.py) and '_admm-pallas'
-(the fused-kernel ADMM of ops/cuda/saa_admm.py, float32 only). The JAX
-package's other backends are not ported yet and raise.
+Backends: 'admm' (the structured ADMM of ops/admm.py), '_admm-pallas'
+(the fused-kernel ADMM of ops/cuda/saa_admm.py) and '_admm-pallas-f' (the
+lane-flat fused-kernel ADMM of ops/cuda/saa_admm_f.py); the two fused
+backends are float32 only. The JAX package's other backends are not ported
+yet and raise.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from riskaversetrajopt_torch.core.config import SCPConfig, SolverConfig
+from riskaversetrajopt_torch.models.base import resolve_device
 from riskaversetrajopt_torch.ops.cvar import avar
 from riskaversetrajopt_torch.ops.rollout import linearize_batch, rollout_batch
 from riskaversetrajopt_torch.ops.saa_qp import (
@@ -25,7 +28,8 @@ from riskaversetrajopt_torch.ops.saa_qp import (
     solve_saa_qp,
 )
 
-_BACKENDS = ("admm", "_admm-pallas")
+_BACKENDS = ("admm", "_admm-pallas", "_admm-pallas-f")
+_FUSED = ("_admm-pallas", "_admm-pallas-f")
 
 
 class SCPResult(NamedTuple):
@@ -47,8 +51,9 @@ def l2_error_us(us_mat, us_mat_prev):
 class SAATrajOpt:
     """User-facing facade bundling a model with solver/SCP configuration.
 
-    Typical use:
-        opt = SAATrajOpt(DroneModel(), device="cuda")
+    It runs on the card unless `device` names another (``device="cpu"``);
+    the model is moved there. Typical use:
+        opt = SAATrajOpt(DroneModel())
         omegas = opt.sample(torch.Generator("cuda").manual_seed(0), M=1000)
         res = opt.solve(omegas, alpha=0.2)
     """
@@ -70,9 +75,9 @@ class SAATrajOpt:
                 f"qp_backend {qp_backend!r} is not ported; the port has "
                 f"{_BACKENDS} (ROADMAP Queue A lists the others)"
             )
-        if qp_backend == "_admm-pallas" and dtype != torch.float32:
+        if qp_backend in _FUSED and dtype != torch.float32:
             raise ValueError(
-                "'_admm-pallas' runs the float32 fused kernel; pass "
+                f"{qp_backend!r} runs a float32 fused kernel; pass "
                 f"dtype=torch.float32 (got {dtype})"
             )
         self.method = method
@@ -89,7 +94,7 @@ class SAATrajOpt:
                 f"'admm' backend (got {qp_backend!r})"
             )
         self.dtype = dtype
-        self.device = torch.device(model.device if device is None else device)
+        self.device = resolve_device(device)
         self.model = model.to(self.device, dtype)
         scn = model.scn
         n = model.S * model.n_u
@@ -152,6 +157,12 @@ class SAATrajOpt:
             from riskaversetrajopt_torch.ops.cuda import saa_admm
 
             return saa_admm.solve_saa_qp_pallas(
+                st, data, scp_iter, self.admm_cfg, x0=x0, y0=y0, rho0=rho0,
+            )
+        if self.qp_backend == "_admm-pallas-f":
+            from riskaversetrajopt_torch.ops.cuda import saa_admm_f
+
+            return saa_admm_f.solve_saa_qp_pallas_f(
                 st, data, scp_iter, self.admm_cfg, x0=x0, y0=y0, rho0=rho0,
             )
         eps_scale = None

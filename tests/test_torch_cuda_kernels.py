@@ -19,7 +19,9 @@ from riskaversetrajopt_torch.core.config import (
 )
 from riskaversetrajopt_torch.models.drone import DroneModel, DroneOmega
 from riskaversetrajopt_torch.ops import admm
+from riskaversetrajopt_torch.ops.cuda import kernel_checks as kc
 from riskaversetrajopt_torch.ops.cuda import saa_admm as tk
+from riskaversetrajopt_torch.ops.cuda import saa_admm_f as tkf
 from riskaversetrajopt_torch.ops.saa_qp import (
     SAAQPOps,
     build_bounds,
@@ -41,7 +43,7 @@ def _cuda():
 def _scaled_problem(dev, M=50, scp_iter=3):
     """The float32 scaled structure of a real define phase (the first M
     fixture omegas at the initial guess), on `dev`."""
-    opt = SAATrajOpt(DroneModel(DroneScenario(M=M)),
+    opt = SAATrajOpt(DroneModel(DroneScenario(M=M), device=dev),
                      scp_cfg=SCPConfig(num_iters=1), device=dev)
     with np.load(FIXTURE) as f:
         om = DroneOmega(*(torch.from_numpy(f[k][:M]).to(dev)
@@ -93,3 +95,97 @@ def test_saa_admm_kernel_refuses_bad_inputs():
     with pytest.raises(ValueError, match="contiguous"):
         tk.admm_chunk(p._replace(Sinv=p.Sinv.T), s0, d, 1)
     assert tk.admm_chunk.launches == before
+
+
+def _rel_err(a, b):
+    return float(torch.max(torch.abs(a - b) / (1 + torch.abs(b))))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("precision", ["highest", "high", "default"])
+def test_saa_admm_f_kernel_matches_plain(precision):
+    """csrc/saa_admm_f.cu against one_iter_ref_f on the card at each sweep
+    precision, 20 iterations at M=50, to chip_smoke.py's tolerance; two runs
+    from one state agree bit for bit; each call counts one launch.
+
+    "highest" and "high" compare a 20-iteration chunk with 20 plain
+    iterations. At "default" (bf16 operands) the iteration amplifies any
+    change of summation order into O(1e-2..1) after tens of iterations, for
+    two plain versions as much as for kernel and plain. So there each of
+    the 20 kernel iterations is held to one plain iteration from the same
+    state (kernel_checks.step_err_f)."""
+    p, d = _scaled_problem(_cuda())
+    pf = tkf.to_f(p, d)
+    s0 = tkf.state_to_f(tk.init_scaled_state(p), d)
+    before = tkf.admm_chunk_f.launches
+    out = tkf.admm_chunk_f(pf, s0, d, 20, precision)
+    again = tkf.admm_chunk_f(pf, s0, d, 20, precision)
+    torch.cuda.synchronize()
+    assert tkf.admm_chunk_f.launches == before + 2
+    for name, a, c in zip(out._fields, out, again):
+        assert torch.equal(a, c), name
+    if precision != "default":
+        ref = s0
+        for _ in range(20):
+            ref = tkf.one_iter_ref_f(pf, ref, d, precision)
+        for name, a, b in zip(out._fields, out, ref):
+            assert _rel_err(a, b) <= 2e-2, (name, _rel_err(a, b))
+        return
+    s = s0
+    for it in range(20):
+        step = tkf.admm_step_f(pf, s, d, precision)
+        err, _ = kc.step_err_f(pf, s, step, d, precision)
+        assert err <= 2e-2, (it, err)
+        s = step.state
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("precision", ["highest", "high", "default"])
+def test_saa_admm_f_kernel_sweeps_hold_their_precision(precision):
+    """From the states of a 20-iteration kernel run, each kernel iteration's
+    two sweeps hold at their own precision's arithmetic and fail at each
+    other precision's (kernel_checks.check_sweeps_f): a kernel that rounded
+    where it should not, or did not where it should, fails here."""
+    p, d = _scaled_problem(_cuda())
+    pf = tkf.to_f(p, d)
+    s = tkf.state_to_f(tk.init_scaled_state(p), d)
+    for _ in range(20):
+        step = tkf.admm_step_f(pf, s, d, precision)
+        errs = kc.sweep_errs_f(pf, s, step, d)
+        kc.check_sweeps_f(errs, precision)
+        for other in errs:
+            if other != precision:
+                with pytest.raises(AssertionError, match="sweep"):
+                    kc.check_sweeps_f(errs, other)
+        s = step.state
+
+
+@pytest.mark.gpu
+def test_saa_admm_f_kernel_matches_b1():
+    """Kernel B2 at "highest" and kernel B1 run the same iteration in two
+    layouts: 20 iterations at M=50 agree through f_to_state to 2e-2."""
+    p, d = _scaled_problem(_cuda())
+    s0 = tk.init_scaled_state(p)
+    b1 = tk.admm_chunk(p, s0, d, 20)
+    b2 = tkf.f_to_state(
+        tkf.admm_chunk_f(tkf.to_f(p, d), tkf.state_to_f(s0, d), d, 20), d)
+    torch.cuda.synchronize()
+    for name, a, b in zip(b1._fields, b2, b1):
+        assert _rel_err(a, b) <= 2e-2, (name, _rel_err(a, b))
+
+
+@pytest.mark.gpu
+def test_saa_admm_f_kernel_refuses_bad_inputs():
+    """A CUDA tensor kernel B2 does not take raises before any launch: a
+    float64 field, a non-contiguous one, a wrong shape."""
+    p, d = _scaled_problem(_cuda())
+    pf = tkf.to_f(p, d)
+    s0 = tkf.state_to_f(tk.init_scaled_state(p), d)
+    before = tkf.admm_chunk_f.launches
+    with pytest.raises(ValueError, match="float32"):
+        tkf.admm_chunk_f(pf._replace(G2=pf.G2.double()), s0, d, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        tkf.admm_chunk_f(pf._replace(Sinv=pf.Sinv.T), s0, d, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        tkf.admm_chunk_f(pf, s0._replace(zG_f=s0.zG_f[:-1]), d, 1)
+    assert tkf.admm_chunk_f.launches == before

@@ -40,7 +40,7 @@ def test_scenario_constants_match(prop):
 def models():
     jm = DroneModel(jconfig.DroneScenario(M=M))
     om = jm.sample(jax.random.PRNGKey(3), M)
-    tm = TDroneModel(tconfig.DroneScenario(M=M))
+    tm = TDroneModel(tconfig.DroneScenario(M=M), device="cpu")
     rng = np.random.default_rng(0)
     xs = rng.standard_normal((M, jm.S + 1, jm.n_x))
     us = rng.standard_normal((M, jm.n_u))
@@ -104,7 +104,7 @@ def test_sample_distribution():
     the mean and std of the Brownian increments (4000*120 draws: the
     tolerances are > 5 standard errors)."""
     scn = tconfig.DroneScenario()
-    tm = TDroneModel(scn)
+    tm = TDroneModel(scn, device="cpu")
     n = 4000
     om = tm.sample(torch.Generator().manual_seed(0), n)
     assert om.mass.shape == (n,) and om.obs_Q.shape == (n, scn.n_obs, 3, 3)

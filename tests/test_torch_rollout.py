@@ -26,7 +26,7 @@ def both():
     us = np.asarray(jm.initial_guess(), np.float64) + 0.02 * np.linspace(
         -1, 1, jm.S * jm.n_u).reshape(jm.S, jm.n_u)
     lin_j = jrollout.linearize_batch(jm, jnp.asarray(us), om)
-    tm = TDroneModel(TScenario(M=M))
+    tm = TDroneModel(TScenario(M=M), device="cpu")
     tom = interop.drone_omega(om)
     lin_t = trollout.linearize_batch(tm, torch.from_numpy(us), tom)
     return jm, om, us, tm, tom, lin_j, lin_t

@@ -170,7 +170,7 @@ def test_solve_saa_qp_pallas_quality():
     problem stalls near eps 1e-3 for every backend, so the contract is
     solution quality at a fixed budget, not the solved flag). The reference
     solve is the port's float64 one, which test_torch_admm.py holds to the
-    JAX solve; the port's float32 'admm' and polish need ops/dsjit.py."""
+    JAX solve. test_torch_saa_admm_f.py holds the polished float32 solve."""
     st, data = make_problem(M=12)
     tst, tdata = tqp.SAAQPStatic(*st[:14]), interop.saa_qp_data(data)
     cfg = TSolverConfig(eps_abs=1e-3, eps_rel=1e-3, max_iter=4000,
@@ -190,12 +190,13 @@ def test_solve_saa_qp_pallas_quality():
 
 
 def test_solve_saa_qp_pallas_refuses_what_it_cannot_do():
+    """The fused kernels take float32 only: a float64 problem raises before
+    any iteration, with or without polish (float32 polish runs since the
+    compensated factorization of ops/dsjit.py is ported)."""
     st, data = make_problem(M=12)
     tst = tqp.SAAQPStatic(*st[:14])
     tdata = interop.saa_qp_data(data)
-    with pytest.raises(ValueError, match="float32"):
-        tk.solve_saa_qp_pallas(tst, tdata, 3, TSolverConfig(polish=False))
-    with pytest.raises(NotImplementedError, match="dsjit"):
-        tk.solve_saa_qp_pallas(tst, type(tdata)(*(x.float() for x in tdata)),
-                               3, TSolverConfig(polish=True))
+    for polish in (False, True):
+        with pytest.raises(ValueError, match="float32"):
+            tk.solve_saa_qp_pallas(tst, tdata, 3, TSolverConfig(polish=polish))
 

@@ -1,6 +1,7 @@
 """The port's structured SAA QP (packing, bounds, objective, operators and
 the Schur-complement KKT solve) against the JAX package on the same float64
-problem data, at scp_iter in {0, 1, 2, 3} (gated and live iterations)."""
+problem data, at scp_iter in {0, 1, 2, 3} (gated and live iterations); and
+the float32 compensated factorization and the sweep precisions."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -149,15 +150,91 @@ def test_factored_refine_mode_matches(problems):
 
 
 def test_unported_options_raise(problems):
-    """No quiet fallback: float32 factorization needs the compensated
-    reductions of ops/dsjit.py (not ported), and only full-precision
-    sweeps exist."""
+    """No quiet fallback: a sweep precision the TPU does not name raises.
+    Float32 factorization is compensated (ops/dsjit.py) and runs."""
     _, _, tst, tdata = problems()
     ops32 = tqp.SAAQPOps(tst, type(tdata)(*(x.float() for x in tdata)), 3)
     assert ops32.factorize_compensated
     nv = tst.n + tst.M + 2
     m = tst.n_fc + 1 + tst.M + tst.M * tst.K + 1 + tst.n
-    with pytest.raises(NotImplementedError, match="dsjit"):
-        ops32.factorize(torch.ones(m), torch.ones(nv))
+    S_op = ops32.factorize(torch.ones(m), torch.ones(nv))[0]
+    assert S_op.dtype == torch.float32 and bool(torch.isfinite(S_op).all())
     with pytest.raises(ValueError, match="sweep_precision"):
-        tqp.make_ops(tst, tdata, 3, TSolverConfig(sweep_precision="high"))
+        tqp.make_ops(tst, tdata, 3, TSolverConfig(sweep_precision="tf32"))
+
+
+@pytest.fixture(scope="module")
+def problem32():
+    """The float32 M=12 problem of tests/test_pallas_admm.py on both sides."""
+    import jax
+
+    st, data = make_problem(M=12)
+    data32 = jax.tree.map(lambda x: jnp.asarray(x, jnp.float32), data)
+    return (st, data32, tqp.SAAQPStatic(*st[:14]),
+            interop.saa_qp_data(data32, dtype=torch.float32))
+
+
+@pytest.mark.parametrize("scp_iter", [0, 3])
+def test_compensated_factorize_float32_matches(problem32, scp_iter):
+    """The float32 compensated factorization (double-single sums over M) and
+    kkt_solve through the Ruiz-scaled operator, against the JAX package's on
+    the same float32 data, scaling and rho. Both form the per-sample
+    contractions over K in plain float32 in their own order, so the Schur
+    block S = L L^T agrees to 1e-6 of its largest entry, and the solve of a
+    random right-hand side (one 'true' refinement pass) to 1e-4 of scale."""
+    st, data32, tst, tdata = problem32
+    jops = jqp.SAAQPOps(st, data32, jnp.asarray(scp_iter))
+    tops = tqp.SAAQPOps(tst, tdata, scp_iter)
+    assert jops.factorize_compensated and tops.factorize_compensated
+    _, q = jqp.build_objective(st, data32)
+    l, u = jqp.build_bounds(st, data32, jnp.asarray(scp_iter))
+    sc_j = jadmm.ruiz_equilibrate(jops, q, l, u)
+    rho_vec = jadmm.rho_vector(sc_j.E * l, sc_j.E * u, 0.1).astype(jnp.float32)
+    sigma = jnp.full(q.shape[0], 1e-6, jnp.float32)
+    sops_j = jadmm.ScaledOps(jops, sc_j)
+    sops_t = tadmm.ScaledOps(tops, interop.scaling(sc_j, dtype=torch.float32))
+    f_j = sops_j.factorize(rho_vec, sigma)
+    rv_t, sg_t = _t(rho_vec), _t(sigma)
+    f_t = sops_t.factorize(rv_t, sg_t)
+    L_j = np.asarray(f_j[0], np.float64)
+    L_t = f_t[0].double().numpy()
+    S_j, S_t = L_j @ L_j.T, L_t @ L_t.T
+    assert np.max(np.abs(S_t - S_j)) <= 1e-6 * np.max(np.abs(S_j))
+    rhs = np.random.default_rng(scp_iter).standard_normal(q.shape[0])
+    rhs = rhs.astype(np.float32)
+    x_j = np.asarray(sops_j.kkt_solve(f_j, jnp.asarray(rhs), rho_vec, sigma))
+    x_t = sops_t.kkt_solve(f_t, _t(rhs), rv_t, sg_t).numpy()
+    assert np.max(np.abs(x_t - x_j)) <= 1e-4 * np.max(np.abs(x_j))
+
+
+def test_sweep_precisions(problem32):
+    """The G-sweeps at "high" (bf16x3) lie within 1e-5 of "highest", relative
+    to the scale of their terms max(|a| @ |b|) (a sum with cancellation has a
+    smaller result than its terms; bf16x3 drops ~3 * 2^-18 of each term), and
+    "default" equals "highest" on bf16-rounded operands exactly (the same
+    float32 matmul of the same rounded values)."""
+    _, _, tst, tdata = problem32
+    rng = np.random.default_rng(5)
+    nv = tst.n + tst.M + 2
+    m = tst.n_fc + 1 + tst.M + tst.M * tst.K + 1 + tst.n
+    z = _t(rng.standard_normal(nv).astype(np.float32))
+    w = _t(rng.standard_normal(m).astype(np.float32))
+    G = tdata.G.reshape(-1, tst.n)
+    u, wG = z[: tst.n], w[: G.shape[0]]
+    for a, b in ((G, u), (wG, G)):
+        ref = tqp.sweep_matmul(a, b, "highest").double()
+        high = tqp.sweep_matmul(a, b, "high").double()
+        scale = torch.max(a.double().abs() @ b.double().abs())
+        assert torch.max(torch.abs(high - ref)) <= 1e-5 * scale
+    bf = lambda x: x.to(torch.bfloat16).float()  # noqa: E731
+    ops = {p: tqp.SAAQPOps(tst, tdata, 3, sweep_precision=p)
+           for p in tqp.SWEEP_PRECISIONS}
+    # "default": bf16 operands, float32 accumulation, in both sweep forms;
+    # through matvec_A (u enters the sweep unscaled) with a bf16 z only G is
+    # rounded, so "highest" on rounded G matches exactly
+    for a, b in ((G, u), (wG, G)):
+        assert torch.equal(tqp.sweep_matmul(a, b, "default"), bf(a) @ bf(b))
+    ops_bf = tqp.SAAQPOps(tst, tdata._replace(G=bf(tdata.G)), 3)
+    assert torch.equal(ops["default"].matvec_A(bf(z)), ops_bf.matvec_A(bf(z)))
+    # and the rounded operands differ from "highest" at the bf16 level
+    assert not torch.equal(ops["default"].matvec_A(z), ops["highest"].matvec_A(z))

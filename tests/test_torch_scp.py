@@ -32,8 +32,9 @@ def _jax_omegas(M, seed=0):
 
 def _port(M, num_iters, **kw):
     return tdriver.SAATrajOpt(
-        TDroneModel(tconfig.DroneScenario(M=M)),
-        scp_cfg=tconfig.SCPConfig(num_iters=num_iters, **GOLDEN_SCP), **kw)
+        TDroneModel(tconfig.DroneScenario(M=M), device="cpu"),
+        scp_cfg=tconfig.SCPConfig(num_iters=num_iters, **GOLDEN_SCP),
+        device="cpu", **kw)
 
 
 def test_admm_scp_matches_jax_m8():
@@ -68,35 +69,80 @@ def test_admm_scp_golden_m50():
     assert err <= 1e-3, f"relative L2 vs golden = {err:.3e}"
 
 
+def _fused_scp_m8(backend):
+    """A float32 fused-backend SCP, M=8, 10 iterations on the CPU (plain
+    iteration): returns the result and whether any kernel launched."""
+    from riskaversetrajopt_torch.ops.cuda import saa_admm, saa_admm_f
+
+    cfg = tconfig.SolverConfig(eps_abs=1e-4, eps_rel=1e-4, max_iter=2000,
+                               polish=False, rho_warm_start=True)
+    opt = _port(8, 10, qp_backend=backend, admm_cfg=cfg, dtype=torch.float32)
+    before = saa_admm.admm_chunk.launches, saa_admm_f.admm_chunk_f.launches
+    res = opt.solve(interop.drone_omega(_jax_omegas(8), dtype=torch.float32),
+                    alpha=0.2)
+    launched = (saa_admm.admm_chunk.launches,
+                saa_admm_f.admm_chunk_f.launches) != before
+    return res, launched
+
+
 def test_pallas_backend_scp_m8():
     """'_admm-pallas' float32, M=8, 10 SCP iterations on the CPU (plain
     iteration, no kernel launch): the last control update below 5e-2, as
     test_pallas_admm.py:173-200 asks of the JAX backend. The port's solver
     config is chip_smoke.py's, with max_iter cut to 2000 to keep this cheap."""
-    cfg = tconfig.SolverConfig(eps_abs=1e-4, eps_rel=1e-4, max_iter=2000,
-                               polish=False, rho_warm_start=True)
-    opt = _port(8, 10, qp_backend="_admm-pallas", admm_cfg=cfg,
-                dtype=torch.float32)
-    from riskaversetrajopt_torch.ops.cuda import saa_admm
-
-    before = saa_admm.admm_chunk.launches
-    res = opt.solve(interop.drone_omega(_jax_omegas(8), dtype=torch.float32),
-                    alpha=0.2)
-    assert saa_admm.admm_chunk.launches == before
+    res, launched = _fused_scp_m8("_admm-pallas")
+    assert not launched
     l2 = res.l2_errors.numpy()
     assert res.us.dtype == torch.float32 and np.isfinite(l2).all()
     assert l2[-1] < 5e-2, f"L2 errors: {l2}"
 
 
+def test_pallas_f_backend_scp_m8():
+    """'_admm-pallas-f', the same contract: the lane-flat plain iteration
+    on the CPU, no kernel launch, the last control update below 5e-2."""
+    res, launched = _fused_scp_m8("_admm-pallas-f")
+    assert not launched
+    l2 = res.l2_errors.numpy()
+    assert res.us.dtype == torch.float32 and np.isfinite(l2).all()
+    assert l2[-1] < 5e-2, f"L2 errors: {l2}"
+
+
+def test_admm_scp_float32_m8():
+    """The float32 'admm' backend runs now that its factorization is
+    compensated (ops/dsjit.py): M=8, 3 SCP iterations with polish, every
+    iterate finite."""
+    cfg = tconfig.SolverConfig(eps_abs=1e-4, eps_rel=1e-4, max_iter=500)
+    res = _port(8, 3, admm_cfg=cfg, dtype=torch.float32).solve(
+        interop.drone_omega(_jax_omegas(8), dtype=torch.float32), alpha=0.2)
+    assert res.us.dtype == torch.float32
+    for name in ("us", "xs", "l2_errors", "us_history"):
+        assert bool(torch.isfinite(getattr(res, name)).all()), name
+
+
 def test_backend_choices_raise():
-    """Deliberate differences from the JAX driver: '_admm-pallas' refuses a
-    dtype other than float32 instead of running the XLA ADMM, and the
-    backends not ported yet raise."""
-    with pytest.raises(ValueError, match="float32"):
-        _port(8, 1, qp_backend="_admm-pallas")
-    for name in ("ipm", "hybrid", "admm-ir", "admm-ds", "_admm-pallas-f"):
+    """Deliberate differences from the JAX driver: the fused backends
+    refuse a dtype other than float32 instead of running the XLA ADMM, and
+    the backends not ported yet raise."""
+    for name in ("_admm-pallas", "_admm-pallas-f"):
+        with pytest.raises(ValueError, match="float32"):
+            _port(8, 1, qp_backend=name)
+    for name in ("ipm", "hybrid", "admm-ir", "admm-ds"):
         with pytest.raises(ValueError, match="not ported"):
             _port(8, 1, qp_backend=name)
+
+
+def test_card_is_the_default_device():
+    """With no device given the model and the driver run on the card; with
+    no card they raise and say to pass device='cpu', rather than running on
+    the host. Decided here, when the test runs."""
+    if torch.cuda.is_available():
+        opt = tdriver.SAATrajOpt(TDroneModel())
+        assert opt.device.type == "cuda" and opt.model.device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        TDroneModel()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tdriver.SAATrajOpt(TDroneModel(device="cpu"))
 
 
 def test_monte_carlo_matches_jax():
