@@ -7,7 +7,12 @@ Phases, in order (each prints its seconds; any failure exits non-zero):
      for sm_90a, one nvcc each, both at once.
   1. kernel B1 against its plain PyTorch version (one_iter_ref) on the
      M=1000 scaled problem of a real define phase at scp_iter=3, 100
-     iterations each, both on the card; time both and the cuBLAS sweeps.
+     iterations each, both on the card; time both, the cuBLAS sweeps and
+     the dependency-chain floor (three grid barriers per iteration on B1's
+     grid); then B1 against one_iter_ref at M=2000 (sampled omegas), where
+     the G slab no longer fits in shared memory: 25 iterations, timed.
+     Each kernel's launch shape (grid, samples per block, shared memory,
+     residency) is printed.
   2. the float64 'admm' SCP at M=1000, 15 iterations, golden SCP config, on
      the committed omegas fixture; held to the committed golden trajectory.
   3. the float32 '_admm-pallas' SCP at M=1000, 15 iterations, through
@@ -40,6 +45,7 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parent
 FIXTURES = REPO / "tests" / "fixtures"
 M, ALPHA, SCP_ITERS, CHUNK, CHUNK_F = 1000, 0.2, 15, 100, 25
+M_STREAM = 2000  # beyond shared-memory residency of the G slab
 PRECISIONS = ("highest", "high", "default")
 # Kernel vs plain after 100 iterations, |a - b| <= TOL * (1 + |b|) per
 # element: both run float32 with sums taken in different orders (blocked
@@ -80,7 +86,7 @@ def phase0(torch):
     for path, secs, out in builds:
         log(f"built {path.name} in {secs:.2f} s")
         for line in out.splitlines():
-            if "registers" in line or "Compiling entry" in line:
+            if any(k in line for k in ("registers", "Compiling entry", "spill")):
                 log("  ptxas: " + line.strip())
     return smi
 
@@ -143,7 +149,9 @@ def bound(inputs, outputs, dims, chunk, precision="highest"):
                                        else "bytes")
 
 
-def phase1(torch, dev):
+def scaled_problem(torch, dev, m, om):
+    """The float32 scaled structure of a real define phase at the initial
+    guess (scp_iter=3, SolverConfig()) for omegas `om` of `m` samples."""
     from riskaversetrajopt_torch.core.config import DroneScenario, SolverConfig
     from riskaversetrajopt_torch.models.drone import DroneModel
     from riskaversetrajopt_torch.ops import admm
@@ -154,53 +162,85 @@ def phase1(torch, dev):
     from riskaversetrajopt_torch.scp.driver import SAATrajOpt
 
     # no device given: the port runs on the card by default
-    opt = SAATrajOpt(DroneModel(DroneScenario(M=M)), scp_cfg=golden_scp_config())
-    om = load_omegas(torch, torch.float64, dev)
-    data = opt._define(opt.model.initial_guess(), om, ALPHA)
+    opt = SAATrajOpt(DroneModel(DroneScenario(M=m)), scp_cfg=golden_scp_config())
+    data = opt._define(opt.model.initial_guess(), om(opt), ALPHA)
     data32 = type(data)(*(x.to(torch.float32) for x in data))
-    st, scp_iter, cfg = opt._static_for(M), 3, SolverConfig()
+    st, scp_iter, cfg = opt._static_for(m), 3, SolverConfig()
     ops = SAAQPOps(st, data32, scp_iter)
     _, q = build_objective(st, data32)
     l, u = build_bounds(st, data32, scp_iter)
     scaling = admm.ruiz_equilibrate(ops, q, l, u, iters=5)
     p, _ = sk.scaled_structure(st, data32, scp_iter, scaling,
                                torch.tensor(cfg.rho, device=dev), cfg)
-    d = sk.kernel_dims(st)
-    s0 = sk.init_scaled_state(p)
+    return p, sk.kernel_dims(st), st, data32
 
-    def plain():
-        s = s0
-        for _ in range(CHUNK):
-            s = sk.one_iter_ref(p, s, d)
-        return s
 
-    ref = plain()
-    before = sk.admm_chunk.launches
-    out = sk.admm_chunk(p, s0, d, CHUNK)
-    again = sk.admm_chunk(p, s0, d, CHUNK)
+def shape_fields(shape):
+    """The launch-shape keys of the kernels line."""
+    return {"grid_blocks": shape.grid_blocks,
+            "samples_per_block": shape.samples_per_block,
+            "smem_bytes_per_block": shape.smem_bytes_per_block,
+            "resident": shape.resident}
+
+
+def log_shape(name, d, shape):
+    log(f"{name} launch at M={d.M}: {shape.grid_blocks} blocks x "
+        f"{shape.samples_per_block} samples, {shape.smem_bytes_per_block} B "
+        f"shared memory per block, G slab resident {shape.resident}, rows "
+        f"resident {shape.rows_resident}")
+
+
+def kernel_vs_plain(torch, run, plain, s0, iters, what):
+    """`iters` iterations of the kernel (`run`, twice) and of its plain
+    version from s0: every field finite, state_err <= KERNEL_TOL, the two
+    kernel runs bit for bit equal. Returns (state_err, max abs err, out)."""
+    from riskaversetrajopt_torch.ops.cuda import kernel_checks as kc
+
+    ref = s0
+    for _ in range(iters):
+        ref = plain(ref)
+    out = run(s0, iters)
+    again = run(s0, iters)
     torch.cuda.synchronize()
+    rel, abs_ = kc.state_err(out, ref)
+    log(f"{what}, {iters} iterations: max |kernel - plain| / (1 + |plain|) "
+        f"{rel:.3e}")
+    if rel > KERNEL_TOL:
+        raise AssertionError(f"{what} disagrees with its plain version: {rel:.3e}")
+    if not all(torch.equal(a, b) for a, b in zip(out, again)):
+        raise AssertionError(f"two {what} runs from one state differ")
+    log(f"{what} repeat run: bitwise identical")
+    return rel, abs_, out
+
+
+def phase1(torch, dev):
+    from riskaversetrajopt_torch.ops.cuda import saa_admm as sk
+
+    p, d, st, data32 = scaled_problem(
+        torch, dev, M, lambda opt: load_omegas(torch, torch.float64, dev))
+    s0 = sk.init_scaled_state(p)
+    shape = sk.launch_shape(d, dev)
+    log_shape("B1", d, shape)
+
+    def plain(s):
+        return sk.one_iter_ref(p, s, d)
+
+    before = sk.admm_chunk.launches
+    max_rel, max_abs, out = kernel_vs_plain(
+        torch, lambda s, k: sk.admm_chunk(p, s, d, k), plain, s0, CHUNK, "B1")
     if sk.admm_chunk.launches != before + 2:
         raise AssertionError("admm_chunk did not count its launches")
-    errs, abs_errs = {}, {}
-    for name, a, b in zip(ref._fields, out, ref):
-        if not bool(torch.isfinite(a).all()):
-            raise AssertionError(f"kernel field {name} is not finite")
-        diff = torch.abs(a - b)
-        errs[name] = float(torch.max(diff / (1.0 + torch.abs(b))))
-        abs_errs[name] = float(torch.max(diff))
-    log("max |kernel - plain| / (1 + |plain|) per field after "
-        f"{CHUNK} iterations: " + json.dumps({k: f"{v:.3e}" for k, v in errs.items()}))
-    max_rel = max(errs.values())
-    if max_rel > KERNEL_TOL:
-        raise AssertionError(f"kernel disagrees with one_iter_ref: {max_rel:.3e}")
-    if not all(torch.equal(a, b) for a, b in zip(out, again)):
-        raise AssertionError("two kernel runs from one state differ")
-    log("kernel repeat run: bitwise identical")
 
     reps = 10
     sk.admm_chunk(p, s0, d, CHUNK)  # warm
     t_k = cuda_time(torch, lambda: sk.admm_chunk(p, s0, d, CHUNK), reps)
-    t_p = cuda_time(torch, plain, 3)
+
+    def plain_chunk():
+        s = s0
+        for _ in range(CHUNK):
+            s = plain(s)
+
+    t_p = cuda_time(torch, plain_chunk, 3)
     # yardstick, never on the kernel's path: the two cuBLAS G-sweeps an
     # iteration needs, Gs^T w and Gs u
     G2d = p.Gs.view(-1, d.n)
@@ -213,21 +253,53 @@ def phase1(torch, dev):
 
     sweeps()
     t_l = cuda_time(torch, sweeps, reps)
+    # the dependency chain alone: three grid barriers per iteration
+    sk.sync_floor(d, dev, CHUNK)  # warm
+    t_f = cuda_time(torch, lambda: sk.sync_floor(d, dev, CHUNK), reps)
     b_ms, b_by = bound((*p, *s0), out, d, CHUNK)
     log(f"kernel {t_k * 1e6 / CHUNK:.2f} us/iter, plain one_iter_ref "
         f"{t_p * 1e6 / CHUNK:.2f} us/iter, cuBLAS sweeps "
-        f"{t_l * 1e6 / CHUNK:.2f} us/iter, bound {b_ms * 1e3 / CHUNK:.3f} "
+        f"{t_l * 1e6 / CHUNK:.2f} us/iter, three grid barriers "
+        f"{t_f * 1e6 / CHUNK:.2f} us/iter, bound {b_ms * 1e3 / CHUNK:.3f} "
         f"us/iter ({b_by}) (M={M}, chunk={CHUNK})")
     kernel = {
-        "max_abs_err": max(abs_errs.values()),
+        "max_abs_err": max_abs,
         "ms": t_k * 1e3, "plain_ms": t_p * 1e3, "bound_ms": b_ms,
         "bound_by": b_by, "library_ms": t_l * 1e3,
         "iterations_per_call": CHUNK, "max_rel_err": max_rel,
         "us_per_iter": t_k * 1e6 / CHUNK, "plain_us_per_iter": t_p * 1e6 / CHUNK,
         "library_us_per_iter": t_l * 1e6 / CHUNK,
         "bound_us_per_iter": b_ms * 1e3 / CHUNK,
+        "barrier_floor_us_per_iter": t_f * 1e6 / CHUNK,
+        **shape_fields(shape),
+        "streaming": phase1_stream(torch, dev),
     }
     return kernel, (p, d, s0, out, st, data32)
+
+
+def phase1_stream(torch, dev):
+    """B1 at M=2000 (omegas of the port's own sampler, seed 0), where each
+    block's G slab does not fit in shared memory and each sweep reads it
+    from global memory: against one_iter_ref over CHUNK_F iterations, timed."""
+    from riskaversetrajopt_torch.ops.cuda import saa_admm as sk
+
+    p, d, _, _ = scaled_problem(
+        torch, dev, M_STREAM,
+        lambda opt: opt.sample(torch.Generator().manual_seed(0), M_STREAM))
+    s0 = sk.init_scaled_state(p)
+    shape = sk.launch_shape(d, dev)
+    log_shape("B1", d, shape)
+    if shape.resident:
+        raise AssertionError(f"B1 at M={M_STREAM} was meant to stream G")
+    rel, abs_, _ = kernel_vs_plain(
+        torch, lambda s, k: sk.admm_chunk(p, s, d, k),
+        lambda s: sk.one_iter_ref(p, s, d), s0, CHUNK_F,
+        f"B1 at M={M_STREAM}")
+    t_k = cuda_time(torch, lambda: sk.admm_chunk(p, s0, d, CHUNK_F), 10)
+    log(f"B1 at M={M_STREAM}: {t_k * 1e6 / CHUNK_F:.2f} us/iter "
+        f"(chunk {CHUNK_F})")
+    return {"M": M_STREAM, "us_per_iter": t_k * 1e6 / CHUNK_F,
+            "max_rel_err": rel, "max_abs_err": abs_, **shape_fields(shape)}
 
 
 def phase2(torch, dev):
@@ -313,6 +385,8 @@ def phase4(torch, problem):
     before = fk.admm_chunk_f.launches
     by_prec = {}
     for prec in PRECISIONS:
+        shape = fk.launch_shape_f(d, pf.G2.device, prec)
+        log_shape(f"B2 {prec}", d, shape)
         errs, ends = {}, [s0]
         for iters in (CHUNK_F, CHUNK):
             out = fk.admm_chunk_f(pf, s0, d, iters, prec)
@@ -378,6 +452,7 @@ def phase4(torch, problem):
             "us_per_iter": t_k * 1e6 / CHUNK_F,
             "plain_us_per_iter": t_p * 1e6 / CHUNK_F,
             "bound_us_per_iter": b_ms * 1e3 / CHUNK_F,
+            **shape_fields(shape),
         }
         log(f"B2 {prec}: kernel {t_k * 1e6 / CHUNK_F:.2f} us/iter, plain "
             f"{t_p * 1e6 / CHUNK_F:.2f} us/iter, bound "
@@ -412,6 +487,7 @@ def phase4(torch, problem):
         "plain_us_per_iter": main["plain_us_per_iter"],
         "bound_us_per_iter": main["bound_us_per_iter"],
         "library_us_per_iter": t_l * 1e6 / CHUNK_F,
+        **shape_fields(fk.launch_shape_f(d, pf.G2.device)),
         "max_rel_err_vs_b1": rel, "by_precision": by_prec,
     }
 

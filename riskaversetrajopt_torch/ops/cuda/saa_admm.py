@@ -14,7 +14,10 @@ applies the explicit inverse of the (n+2) Schur complement, formed in
 float64 whatever the working dtype.
 
 `one_iter_ref` is the plain PyTorch iteration; `admm_chunk` launches the
-kernel for CUDA tensors and runs `one_iter_ref` only for CPU tensors.
+kernel for CUDA tensors and runs `one_iter_ref` only for CPU tensors. The
+kernel runs a whole chunk in one cooperative launch (`launch_shape` says on
+how many blocks, and what of each block's data is resident in shared
+memory); `csrc/saa_admm_common.cuh` describes its phases.
 """
 
 from __future__ import annotations
@@ -363,20 +366,90 @@ def check_tensors(who: str, p, state, d: KernelDims, sample_rows: dict):
             )
 
 
+class LaunchShape(NamedTuple):
+    """How a chunk call runs on the card (the kernels' C shape queries): one
+    cooperative launch of `grid_blocks` co-resident blocks, each owning
+    `samples_per_block` contiguous samples with `smem_bytes_per_block` of
+    shared memory, which holds Sinv, its G slab where `resident` and its
+    sample rows where `rows_resident`. Each block writes one partial row of
+    `partial_width` float32 values per iteration."""
+
+    grid_blocks: int
+    samples_per_block: int
+    smem_bytes_per_block: int
+    resident: bool
+    rows_resident: bool
+    partial_width: int
+
+
+def declare(lib, prefix: str, chunk_args: int, shape_args: int):
+    """Declare the C signatures of a kernel library's entry points:
+    <prefix>_chunk(ptrs, n_ptrs, `chunk_args` ints, stream),
+    <prefix>_shape(`shape_args` ints, int out[7]), <prefix>_max_n() and
+    <prefix>_error_string(err)."""
+    i = ctypes.c_int
+    fn = getattr(lib, f"{prefix}_chunk")
+    fn.argtypes = [ctypes.c_void_p, i] + [i] * chunk_args + [ctypes.c_void_p]
+    fn.restype = i
+    fn = getattr(lib, f"{prefix}_shape")
+    fn.argtypes = [i] * shape_args + [ctypes.POINTER(i)]
+    fn.restype = i
+    getattr(lib, f"{prefix}_max_n").argtypes = []
+    getattr(lib, f"{prefix}_max_n").restype = i
+    fn = getattr(lib, f"{prefix}_error_string")
+    fn.argtypes = [i]
+    fn.restype = ctypes.c_char_p
+    return lib
+
+
+def cuda_error(lib, prefix: str, err: int) -> RuntimeError:
+    text = getattr(lib, f"{prefix}_error_string")(err).decode()
+    return RuntimeError(f"{prefix}_chunk failed: CUDA error {err} ({text})")
+
+
+def query_shape(lib, prefix: str, device, *args) -> LaunchShape:
+    """The C shape query <prefix>_shape(*args) on `device`."""
+    out = (ctypes.c_int * 7)()
+    with torch.cuda.device(device):
+        err = getattr(lib, f"{prefix}_shape")(*args, out)
+    if err != 0:
+        raise cuda_error(lib, prefix, err)
+    grid, spb, smem, g_res, rows_res, pw, _ = out
+    return LaunchShape(grid, spb, smem, bool(g_res), bool(rows_res), pw)
+
+
+def kernel_scratch(shape: LaunchShape, d: KernelDims, device) -> list:
+    """The scratch list of a chunk call (csrc/saa_admm_common.cuh Scratch).
+    After the call `partials` holds the last iteration's partial rows (the
+    first n columns of each sum to its sweep-1 product), `y_t` and `vt` its
+    y_t and u_t | s_t | t_t. `rhs_y` and `w` hold rows only where they are
+    not resident in shared memory."""
+    f32 = dict(dtype=torch.float32, device=device)
+    rows = 0 if shape.rows_resident else d.M
+    return [
+        torch.empty(shape.grid_blocks * shape.partial_width, **f32),  # partials
+        torch.empty(rows, **f32),  # rhs_y
+        torch.empty(2 * rows * d.K, **f32),  # w
+        torch.empty(d.M, **f32),  # y_t
+        torch.empty(d.n + 2, **f32),  # vt
+    ]
+
+
 def _library():
     """The kernel library with its C signatures declared (built on first
     use)."""
     from riskaversetrajopt_torch.ops.cuda import build
 
-    lib = build.load("saa_admm")
-    fn = lib.saa_admm_chunk
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    for name in ("saa_admm_max_n", "saa_admm_samples_per_block"):
-        getattr(lib, name).argtypes = []
-        getattr(lib, name).restype = ctypes.c_int
+    lib = declare(build.load("saa_admm"), "saa_admm", 5, 4)
+    lib.saa_admm_sync_floor.argtypes = [ctypes.c_int, ctypes.c_int,
+                                        ctypes.c_void_p]
+    lib.saa_admm_sync_floor.restype = ctypes.c_int
     return lib
+
+
+def launch_shape(d: KernelDims, device) -> LaunchShape:
+    """How kernel B1 runs a chunk call of these dims on `device`."""
+    return query_shape(_library(), "saa_admm", device, d.M, d.K, d.n, d.n_fc)
 
 
 def _kernel_chunk(p: ScaledSAA, state: ScaledState, d: KernelDims,
@@ -386,28 +459,33 @@ def _kernel_chunk(p: ScaledSAA, state: ScaledState, d: KernelDims,
         raise ValueError(f"admm_chunk: n={d.n} exceeds the kernel's "
                          f"{lib.saa_admm_max_n()} columns")
     _check_kernel_inputs(p, state, d)
-    with torch.cuda.device(p.Gs.device):
+    dev = p.Gs.device
+    with torch.cuda.device(dev):
         out = ScaledState(*(torch.empty_like(x) for x in state))
-        spb = lib.saa_admm_samples_per_block()
-        nblk1 = (d.M + spb - 1) // spb
-        f32 = dict(dtype=torch.float32, device=p.Gs.device)
-        scratch = [
-            torch.empty(nblk1 * (d.n + 1), **f32),  # partials
-            torch.empty(d.M, **f32),  # rowsum_y
-            torch.empty(d.M, **f32),  # rhs_y
-            torch.empty(d.M, **f32),  # g_y
-            torch.empty(d.M, **f32),  # y_t
-            torch.empty(d.n + 2, **f32),  # vt
-        ]
+        scratch = kernel_scratch(launch_shape(d, dev), d, dev)
         tensors = list(p) + list(state) + list(out) + scratch
         ptrs = (ctypes.c_void_p * len(tensors))(*(x.data_ptr() for x in tensors))
-        stream = torch.cuda.current_stream(p.Gs.device).cuda_stream
+        stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.saa_admm_chunk(ptrs, len(tensors), d.M, d.K, d.n, d.n_fc,
                                  chunk, stream)
-        admm_chunk.launches += 1
         if err != 0:
-            raise RuntimeError(f"saa_admm_chunk failed: CUDA error {err}")
+            raise cuda_error(lib, "saa_admm", err)
+        admm_chunk.launches += 1
     return out
+
+
+def sync_floor(d: KernelDims, device, iters: int) -> None:
+    """One cooperative launch on kernel B1's grid for these dims that only
+    crosses three grid barriers per iteration, `iters` times: the
+    dependency-chain floor of a chunk call, which chip_smoke.py times. No
+    solver path calls it."""
+    lib = _library()
+    grid = launch_shape(d, device).grid_blocks
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = lib.saa_admm_sync_floor(grid, iters, stream)
+    if err != 0:
+        raise cuda_error(lib, "saa_admm", err)
 
 
 def admm_chunk(p: ScaledSAA, state: ScaledState, d: KernelDims,

@@ -17,6 +17,9 @@ sample-row broadcast is a repeat over k. The TPU padding (Mp, Kp, 128 lanes)
 and the packed colpF/colyF slots are gone; `interop.scaled_saa_f` maps the
 JAX layout onto this one for the tests. The iteration is B1's
 (`saa_admm.one_iter_ref`); only the layout and the sweep precision differ.
+The kernel itself reads G2 only: it keeps each block's slab of G in shared
+memory, so one copy serves both sweeps; G2T stays a field for the plain
+version and the interop.
 
 `sweep_precision` is the precision of the two sweeps, with the TPU meanings
 (`ops/saa_qp.py:sweep_matmul`): "highest" exact float32, "high" bf16x3,
@@ -38,11 +41,16 @@ import torch
 from riskaversetrajopt_torch.ops import admm as admm_mod
 from riskaversetrajopt_torch.ops.cuda.saa_admm import (
     KernelDims,
+    LaunchShape,
     ScaledSAA,
     ScaledState,
     _row_update,
     _small,
     check_tensors,
+    cuda_error,
+    declare,
+    kernel_scratch,
+    query_shape,
     solve_chunked,
 )
 from riskaversetrajopt_torch.ops.saa_qp import (
@@ -245,51 +253,45 @@ def _library():
     use)."""
     from riskaversetrajopt_torch.ops.cuda import build
 
-    lib = build.load("saa_admm_f")
-    fn = lib.saa_admm_f_chunk
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    for name in ("saa_admm_f_max_n", "saa_admm_f_partials"):
-        getattr(lib, name).restype = ctypes.c_int
-    lib.saa_admm_f_max_n.argtypes = []
-    lib.saa_admm_f_partials.argtypes = [ctypes.c_int, ctypes.c_int]
-    return lib
+    return declare(build.load("saa_admm_f"), "saa_admm_f", 6, 5)
+
+
+def launch_shape_f(d: KernelDims, device,
+                   sweep_precision: str = "highest") -> LaunchShape:
+    """How kernel B2 runs a chunk call of these dims at `sweep_precision`
+    on `device` ("default" stores G in half the bytes, so it stays resident
+    to a larger M)."""
+    check_sweep_precision(sweep_precision)
+    return query_shape(_library(), "saa_admm_f", device, d.M, d.K, d.n,
+                       d.n_fc, SWEEP_PRECISIONS.index(sweep_precision))
 
 
 def _kernel_chunk(pf: ScaledSAAF, state: ScaledStateF, d: KernelDims,
                   chunk: int, sweep_precision: str):
-    """Launch the kernel; returns the output state and the scratch, which
-    holds the last iteration's sweep-1 partials, y_t and v."""
+    """Launch the kernel; returns the output state, the scratch (which
+    holds the last iteration's partial rows, y_t and v) and the launch
+    shape."""
     lib = _library()
     if d.n > lib.saa_admm_f_max_n():
         raise ValueError(f"admm_chunk_f: n={d.n} exceeds the kernel's "
                          f"{lib.saa_admm_f_max_n()} columns")
     _check_kernel_inputs(pf, state, d)
-    with torch.cuda.device(pf.G2.device):
+    dev = pf.G2.device
+    with torch.cuda.device(dev):
         out = ScaledStateF(*(torch.empty_like(x) for x in state))
-        f32 = dict(dtype=torch.float32, device=pf.G2.device)
-        scratch = [
-            torch.empty(lib.saa_admm_f_partials(d.M, d.K) * (d.n + 1),
-                        **f32),  # partials
-            torch.empty(d.M, **f32),  # rowsum_y
-            torch.empty(d.M, **f32),  # rhs_y
-            torch.empty(d.M, **f32),  # g_y
-            torch.empty(d.M, **f32),  # y_t
-            torch.empty(d.n + 2, **f32),  # vt
-        ]
+        shape = launch_shape_f(d, dev, sweep_precision)
+        scratch = kernel_scratch(shape, d, dev)
         tensors = list(pf) + list(state) + list(out) + scratch
         ptrs = (ctypes.c_void_p * len(tensors))(*(x.data_ptr() for x in tensors))
-        stream = torch.cuda.current_stream(pf.G2.device).cuda_stream
+        stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.saa_admm_f_chunk(
             ptrs, len(tensors), d.M, d.K, d.n, d.n_fc, chunk,
             SWEEP_PRECISIONS.index(sweep_precision), stream,
         )
-        admm_chunk_f.launches += 1
         if err != 0:
-            raise RuntimeError(f"saa_admm_f_chunk failed: CUDA error {err}")
-    return out, scratch
+            raise cuda_error(lib, "saa_admm_f", err)
+        admm_chunk_f.launches += 1
+    return out, scratch, shape
 
 
 def _on_kernel_device(pf: ScaledSAAF, sweep_precision: str) -> bool:
@@ -327,9 +329,9 @@ def admm_step_f(pf: ScaledSAAF, state: ScaledStateF, d: KernelDims,
     holds them to each precision's arithmetic)."""
     if not _on_kernel_device(pf, sweep_precision):
         return step_ref_f(pf, state, d, sweep_precision)
-    out, scratch = _kernel_chunk(pf, state, d, 1, sweep_precision)
-    partials, y_t, v = scratch[0], scratch[4], scratch[5]
-    return StepF(out, partials.view(-1, d.n + 1)[:, : d.n], v, y_t)
+    out, scratch, shape = _kernel_chunk(pf, state, d, 1, sweep_precision)
+    partials, y_t, v = scratch[0], scratch[3], scratch[4]
+    return StepF(out, partials.view(-1, shape.partial_width)[:, : d.n], v, y_t)
 
 
 class _Flat:

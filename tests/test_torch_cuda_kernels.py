@@ -40,14 +40,18 @@ def _cuda():
     return torch.device("cuda")
 
 
-def _scaled_problem(dev, M=50, scp_iter=3):
-    """The float32 scaled structure of a real define phase (the first M
-    fixture omegas at the initial guess), on `dev`."""
+def _scaled_problem(dev, M=50, scp_iter=3, sampled=False):
+    """The float32 scaled structure of a real define phase at the initial
+    guess, on `dev`: the first M fixture omegas, or (`sampled`) M omegas of
+    the port's own DroneModel.sample from a seeded generator."""
     opt = SAATrajOpt(DroneModel(DroneScenario(M=M), device=dev),
                      scp_cfg=SCPConfig(num_iters=1), device=dev)
-    with np.load(FIXTURE) as f:
-        om = DroneOmega(*(torch.from_numpy(f[k][:M]).to(dev)
-                          for k in DroneOmega._fields))
+    if sampled:
+        om = opt.sample(torch.Generator().manual_seed(0), M)
+    else:
+        with np.load(FIXTURE) as f:
+            om = DroneOmega(*(torch.from_numpy(f[k][:M]).to(dev)
+                              for k in DroneOmega._fields))
     data = opt._define(opt.model.initial_guess(), om, 0.2)
     data = type(data)(*(x.float() for x in data))
     st = opt._static_for(M)
@@ -189,3 +193,40 @@ def test_saa_admm_f_kernel_refuses_bad_inputs():
     with pytest.raises(ValueError, match="contiguous"):
         tkf.admm_chunk_f(pf, s0._replace(zG_f=s0.zG_f[:-1]), d, 1)
     assert tkf.admm_chunk_f.launches == before
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M", [263, 2000, 12000])
+@pytest.mark.parametrize("kernel", ["b1", "b2"])
+def test_kernel_matches_plain_beyond_one_block_per_sample(kernel, M):
+    """Kernel B1, and B2 at "highest", against their plain versions over 20
+    iterations at a ragged M (263 fixture omegas: 2 samples per block, the
+    last block one), at an M beyond shared-memory residency of the G slab
+    (2000 sampled omegas: each sweep reads it from global memory) and at an
+    M where the sample rows no longer fit either (12000: they are updated
+    in place in global memory), to chip_smoke.py's 2e-2; two runs from one
+    state agree bit for bit; each call counts one launch."""
+    dev = _cuda()
+    p, d = _scaled_problem(dev, M=M, sampled=M != 263)
+    s0 = tk.init_scaled_state(p)
+    if kernel == "b1":
+        shape = tk.launch_shape(d, dev)
+        run, counter, plain = tk.admm_chunk, tk.admm_chunk, tk.one_iter_ref
+    else:
+        shape = tkf.launch_shape_f(d, dev)
+        p, s0 = tkf.to_f(p, d), tkf.state_to_f(s0, d)
+        run, counter, plain = tkf.admm_chunk_f, tkf.admm_chunk_f, tkf.one_iter_ref_f
+    assert shape.samples_per_block * shape.grid_blocks >= M
+    assert (shape.resident, shape.rows_resident) == (M == 263, M < 12000), shape
+    ref = s0
+    for _ in range(20):
+        ref = plain(p, ref, d)
+    before = counter.launches
+    out = run(p, s0, d, 20)
+    assert counter.launches == before + 1
+    again = run(p, s0, d, 20)
+    assert counter.launches == before + 2
+    torch.cuda.synchronize()
+    for name, a, b, c in zip(ref._fields, out, ref, again):
+        assert torch.equal(a, c), name
+        assert _rel_err(a, b) <= 2e-2, (name, _rel_err(a, b))

@@ -121,6 +121,134 @@ def test_one_iter_ref_matches(setups, scp_iter, dtype, tol):
                                    atol=tol * np.max(np.abs(b)), err_msg=name)
 
 
+def _three_phase_chunk(p, s, d, chunk, blocks):
+    """`chunk` iterations as the CUDA kernel's cooperative grid runs them
+    (csrc/saa_admm_common.cuh), in plain torch; `blocks` are slices of
+    contiguous samples, possibly empty. Phase 1: the previous iteration's
+    CVaR row is completed from the blocks' sums of cy_hat y_t; each block
+    writes its partial row (u_part, sum ys_hat w_y, sum eGt w, sum wD r_y,
+    Cbar^T (Dinv r_y)). Phase 2 reduces the rows in block order and forms
+    r_v with Cbar^T g_y = Cbar^T (Dinv r_y) - coef CtwD, CtwD = Cbar^T wD
+    reduced once from per-block parts; v = r_v Sinv; the small rows but the
+    CVaR row; each block sums wD q, q = r_y - Cbar v. Phase 3 reduces those
+    sums to coef2 and updates each block's rows from y_t. The last CVaR row
+    is completed at chunk end."""
+    n, n_fc = d.n, d.n_fc
+    al, sig, beta, denom = p.alpha_relax, p.sigma, p.sm_beta, p.sm_denom
+    ctwd = sum(p.Cbar[b].T @ p.wD[b] for b in blocks)
+    u, s_, t, y, z_y, yd_y, z_G, yd_G, z_small, yd_small = (x.clone() for x in s)
+    cvar = slice(n_fc, n_fc + 1)
+    cy_parts, v = None, None
+
+    for _ in range(chunk):
+        # phase 1: the previous CVaR row, then one partial row per block
+        if cy_parts is not None:
+            zt_c = sum(cy_parts) + p.cs_hat * v[n] + p.ct_hat * v[n + 1]
+            z_small[cvar], yd_small[cvar] = tk._row_update(
+                al, z_small[cvar], yd_small[cvar], zt_c, p.rv_small[cvar],
+                p.lb_small[cvar], p.ub_small[cvar])
+        w_small = p.rv_small * z_small - yd_small
+        w_c, w_s = w_small[n_fc], w_small[n_fc + 1]
+        r_y = torch.zeros_like(y)
+        rows = []
+        for b in blocks:
+            w = p.rv_G[b] * z_G[b] - yd_G[b]
+            w_y = p.rv_y[b] * z_y[b] - yd_y[b]
+            r_y[b] = (sig * y[b] + p.cy_hat[b] * w_c - p.yd_hat[b] * w_y
+                      - torch.sum(p.eGy[b] * w, dim=1))
+            rows.append(torch.cat([
+                w.reshape(-1) @ p.Gs[b].reshape(-1, n),
+                torch.sum(p.ys_hat[b] * w_y)[None],
+                torch.sum(p.eGt[b] * w)[None],
+                torch.sum(p.wD[b] * r_y[b])[None],
+                p.Cbar[b].T @ (p.Dinv[b] * r_y[b]),
+            ]))
+        # phase 2: reduced partials, r_v -> v, the small rows, sum wD q
+        pr = sum(rows)
+        coef = beta * pr[n + 2] / denom
+        rhs = torch.cat([
+            sig * u - p.q_hat_u + pr[:n] + w_small[:n_fc] @ p.Fs
+            + p.cu * w_small[n_fc + 2:],
+            (sig * s_ - p.q_hat_s + p.cs_hat * w_c - pr[n]
+             - p.ss_hat * w_s)[None],
+            (sig * t + p.ct_hat * w_c - pr[n + 1])[None],
+        ])
+        v = (rhs - (pr[n + 3:] - coef * ctwd)) @ p.Sinv
+        u_t, s_t, t_t = v[:n], v[n], v[n + 1]
+        q = r_y - p.Cbar @ v
+        wq = sum(torch.sum(p.wD[b] * q[b]) for b in blocks)
+        zt_small = tk._small(p.Fs @ u_t, z_small[n_fc], -p.ss_hat * s_t,
+                             p.cu * u_t)
+        keep = z_small[cvar].clone(), yd_small[cvar].clone()
+        z_small, yd_small = tk._row_update(al, z_small, yd_small, zt_small,
+                                           p.rv_small, p.lb_small, p.ub_small)
+        z_small[cvar], yd_small[cvar] = keep
+        u = al * u_t + (1 - al) * u
+        s_ = al * s_t + (1 - al) * s_
+        t = al * t_t + (1 - al) * t
+        # phase 3: coef2, then each block's rows and its sum cy_hat y_t
+        coef2 = beta * wq / denom
+        cy_parts = []
+        for b in blocks:
+            y_t = p.Dinv[b] * q[b] - coef2 * p.wD[b]
+            cy_parts.append(torch.sum(p.cy_hat[b] * y_t))
+            z_y[b], yd_y[b] = tk._row_update(
+                al, z_y[b], yd_y[b], -p.yd_hat[b] * y_t - p.ys_hat[b] * s_t,
+                p.rv_y[b], p.lb_y[b], p.ub_y[b])
+            y[b] = al * y_t + (1 - al) * y[b]
+            zt_G = p.Gs[b] @ u_t - p.eGy[b] * y_t[:, None] - p.eGt[b] * t_t
+            z_G[b], yd_G[b] = tk._row_update(al, z_G[b], yd_G[b], zt_G,
+                                             p.rv_G[b], p.lb_G[b], p.ub_G[b])
+    if cy_parts is not None:
+        zt_c = sum(cy_parts) + p.cs_hat * v[n] + p.ct_hat * v[n + 1]
+        z_small[cvar], yd_small[cvar] = tk._row_update(
+            al, z_small[cvar], yd_small[cvar], zt_c, p.rv_small[cvar],
+            p.lb_small[cvar], p.ub_small[cvar])
+    return tk.ScaledState(u, s_, t, y, z_y, yd_y, z_G, yd_G, z_small, yd_small)
+
+
+@pytest.mark.parametrize("spb", [5, 1, 2, 4])
+def test_three_phase_kernel_algebra(setups, spb):
+    """The kernel's three-phase restructuring of the iteration, in float64
+    (`_three_phase_chunk`: blocks of `spb` samples at M=12, ragged at 5,
+    with an empty block as a grid larger than M leaves one): ten
+    iterations, run as one chunk and as two chunks of five, equal the
+    port's `one_iter_ref` to 1e-10 of each field's scale; and JAX's
+    `one_iter_ref` through interop to the 1e-4 of test_one_iter_ref_matches
+    (JAX rounds v = r_v Sinv to float32). The sound block splits read at
+    most 2.3e-12 on the primal fields and 8.5e-12 on the duals (the dual
+    update multiplies a row residual's rounding by its rho, 100 on the
+    equality rows; the plain iteration merely relaid out, one_iter_ref_f,
+    reads 8.6e-12 there), so 1e-12 cannot be held; a decomposition that
+    drops a term or reads the CVaR row one iteration late reads 1e-2 or
+    more."""
+    st, _, p_j, d_j, _, _, _, d = setups(3)
+    p_j = jax.tree.map(lambda x: jnp.asarray(x, "float64"), p_j)
+    p = interop.scaled_saa(p_j, d_j)
+    p = type(p)(*(x.double() for x in p))
+    blocks = [slice(m0, min(m0 + spb, d.M)) for m0 in range(0, d.M, spb)]
+    blocks.append(slice(d.M, d.M))
+    s0 = tk.init_scaled_state(p)
+    ref = s0
+    for _ in range(10):
+        ref = tk.one_iter_ref(p, ref, d)
+    one = _three_phase_chunk(p, s0, d, 10, blocks)
+    two = _three_phase_chunk(p, _three_phase_chunk(p, s0, d, 5, blocks), d,
+                             5, blocks)
+    for out in (one, two):
+        for name, a, b in zip(ref._fields, out, ref):
+            scale = max(float(torch.max(torch.abs(b))), 1.0)
+            assert float(torch.max(torch.abs(a - b))) <= 1e-10 * scale, name
+    s_j = jk.init_scaled_state(p_j, d_j)
+    for _ in range(10):
+        s_j = jk.one_iter_ref(p_j, s_j, d_j)
+    for name, a, b in zip("x z yd".split(), tk.state_to_flat(one, d),
+                          jk.state_to_flat(p_j, s_j, st, d_j)):
+        b = np.asarray(b)
+        np.testing.assert_allclose(a.numpy(), b, rtol=0,
+                                   atol=1e-4 * np.max(np.abs(b)), err_msg=name)
+
+
 def test_flat_state_roundtrip(setups):
     """state_to_flat / flat_to_state only move float32 values: exact."""
     _, _, _, _, tst, _, p_t, d_t = setups(3)
