@@ -27,8 +27,25 @@ Phases, in order (each prints its seconds; any failure exits non-zero):
   6. the float32 Schur block, compensated and plain, against float64; one
      polished float32 QP per fused solver at M=1000, scp_iter=3,
      SolverConfig() (polish on: the compensated factorization on the card).
-Then one JSON line describing each kernel, the card's name and power limit,
-and as the last line {"ok": true, "device": {...}}.
+  7. the car at the reference's size (CarScenario(): M=50, K=S=20, n=40,
+     n_fc=4, alpha=0.1, omegas of the port's sampler, seed 0): B1 and B2
+     (three precisions) against their plain versions on its scaled
+     structure at scp_iter 0 (gated, the cancellation-free KKT form) and 3,
+     timed; the car SCP (15 iterations) through f64 'admm', f32
+     '_admm-pallas' and f32 '_admm-pallas-f', each held to
+     tests/test_scp_car.py's contract (the final L2 only for f64), with MC
+     on 10000 fresh samples. Each kernel's count is set to 0 just before
+     its car solve and read just after: the "launches" of the kernels line.
+  8. the entry points: solve_instrumented on the drone at M=1000 through
+     '_admm-pallas' (define/solve split, MC check); at M=50 a checkpoint at
+     iteration 4 resumed to 15 against the uninterrupted run, and
+     solve_many over 2 instances against per-instance solve; the
+     drone_risk and driving CLIs (M=50, 2 repeats, 15 SCP iterations) into
+     a temporary directory: the reference file layout, median final
+     L2 < 1e-2, SAA safer than the baseline.
+Then one JSON line describing each kernel (with its launches on every path
+above), the card's name and power limit, and as the last line
+{"ok": true, "device": {...}}.
 
 Run from the repository root with no arguments: python3 chip_smoke.py
 """
@@ -46,6 +63,7 @@ REPO = Path(__file__).resolve().parent
 FIXTURES = REPO / "tests" / "fixtures"
 M, ALPHA, SCP_ITERS, CHUNK, CHUNK_F = 1000, 0.2, 15, 100, 25
 M_STREAM = 2000  # beyond shared-memory residency of the G slab
+CAR_M, CAR_ALPHA = 50, 0.1  # the car CLI's defaults (CarScenario().M)
 PRECISIONS = ("highest", "high", "default")
 # Kernel vs plain after 100 iterations, |a - b| <= TOL * (1 + |b|) per
 # element: both run float32 with sums taken in different orders (blocked
@@ -109,6 +127,14 @@ def golden_scp_config():
                      gate_bound_l=-0.1, gate_bound_u=0.1)
 
 
+def fused_config():
+    """Phase 3's solver config of the float32 fused backends."""
+    from riskaversetrajopt_torch.core.config import SolverConfig
+
+    return SolverConfig(eps_abs=1e-4, eps_rel=1e-4, max_iter=20000,
+                        polish=False, rho_warm_start=True)
+
+
 def cuda_time(torch, fn, reps):
     """Mean seconds per call of fn on the current stream (CUDA events)."""
     start = torch.cuda.Event(enable_timing=True)
@@ -152,20 +178,29 @@ def bound(inputs, outputs, dims, chunk, precision="highest"):
 def scaled_problem(torch, dev, m, om):
     """The float32 scaled structure of a real define phase at the initial
     guess (scp_iter=3, SolverConfig()) for omegas `om` of `m` samples."""
-    from riskaversetrajopt_torch.core.config import DroneScenario, SolverConfig
+    from riskaversetrajopt_torch.core.config import DroneScenario
     from riskaversetrajopt_torch.models.drone import DroneModel
+    from riskaversetrajopt_torch.scp.driver import SAATrajOpt
+
+    # no device given: the port runs on the card by default
+    opt = SAATrajOpt(DroneModel(DroneScenario(M=m)), scp_cfg=golden_scp_config())
+    return scaled_of(torch, dev, opt, om(opt), ALPHA, 3)
+
+
+def scaled_of(torch, dev, opt, om, alpha, scp_iter):
+    """The float32 scaled structure (SolverConfig()) of the define phase of
+    `opt` at its model's initial guess, at `scp_iter`."""
+    from riskaversetrajopt_torch.core.config import SolverConfig
     from riskaversetrajopt_torch.ops import admm
     from riskaversetrajopt_torch.ops.cuda import saa_admm as sk
     from riskaversetrajopt_torch.ops.saa_qp import (
         SAAQPOps, build_bounds, build_objective,
     )
-    from riskaversetrajopt_torch.scp.driver import SAATrajOpt
 
-    # no device given: the port runs on the card by default
-    opt = SAATrajOpt(DroneModel(DroneScenario(M=m)), scp_cfg=golden_scp_config())
-    data = opt._define(opt.model.initial_guess(), om(opt), ALPHA)
+    m = om[0].shape[0]
+    data = opt._define(opt.model.initial_guess(), om, alpha)
     data32 = type(data)(*(x.to(torch.float32) for x in data))
-    st, scp_iter, cfg = opt._static_for(m), 3, SolverConfig()
+    st, cfg = opt._static_for(m), SolverConfig()
     ops = SAAQPOps(st, data32, scp_iter)
     _, q = build_objective(st, data32)
     l, u = build_bounds(st, data32, scp_iter)
@@ -190,10 +225,12 @@ def log_shape(name, d, shape):
         f"resident {shape.rows_resident}")
 
 
-def kernel_vs_plain(torch, run, plain, s0, iters, what):
+def kernel_vs_plain(torch, run, plain, s0, iters, what, epigraph=False):
     """`iters` iterations of the kernel (`run`, twice) and of its plain
     version from s0: every field finite, state_err <= KERNEL_TOL, the two
-    kernel runs bit for bit equal. Returns (state_err, max abs err, out)."""
+    kernel runs bit for bit equal; with `epigraph` (the car) also
+    epigraph_err <= EPIGRAPH_TOL. Returns (state_err, max abs err, out,
+    epigraph_err)."""
     from riskaversetrajopt_torch.ops.cuda import kernel_checks as kc
 
     ref = s0
@@ -203,14 +240,17 @@ def kernel_vs_plain(torch, run, plain, s0, iters, what):
     again = run(s0, iters)
     torch.cuda.synchronize()
     rel, abs_ = kc.state_err(out, ref)
+    epi = kc.epigraph_err(out, ref)
     log(f"{what}, {iters} iterations: max |kernel - plain| / (1 + |plain|) "
-        f"{rel:.3e}")
+        f"{rel:.3e}; s, t, y each against its own scale {epi:.3e}")
     if rel > KERNEL_TOL:
         raise AssertionError(f"{what} disagrees with its plain version: {rel:.3e}")
+    if epigraph and epi > kc.EPIGRAPH_TOL:
+        raise AssertionError(f"{what}: s, t, y {epi:.3e} from the plain version")
     if not all(torch.equal(a, b) for a, b in zip(out, again)):
         raise AssertionError(f"two {what} runs from one state differ")
     log(f"{what} repeat run: bitwise identical")
-    return rel, abs_, out
+    return rel, abs_, out, epi
 
 
 def phase1(torch, dev):
@@ -226,7 +266,7 @@ def phase1(torch, dev):
         return sk.one_iter_ref(p, s, d)
 
     before = sk.admm_chunk.launches
-    max_rel, max_abs, out = kernel_vs_plain(
+    max_rel, max_abs, out, _ = kernel_vs_plain(
         torch, lambda s, k: sk.admm_chunk(p, s, d, k), plain, s0, CHUNK, "B1")
     if sk.admm_chunk.launches != before + 2:
         raise AssertionError("admm_chunk did not count its launches")
@@ -291,7 +331,7 @@ def phase1_stream(torch, dev):
     log_shape("B1", d, shape)
     if shape.resident:
         raise AssertionError(f"B1 at M={M_STREAM} was meant to stream G")
-    rel, abs_, _ = kernel_vs_plain(
+    rel, abs_, _, _ = kernel_vs_plain(
         torch, lambda s, k: sk.admm_chunk(p, s, d, k),
         lambda s: sk.one_iter_ref(p, s, d), s0, CHUNK_F,
         f"B1 at M={M_STREAM}")
@@ -331,14 +371,13 @@ def fused_scp(torch, dev, opt64, gold, backend, counter):
     golden SCP config, phase 3's solver config; every iterate finite, the
     kernel launched, MC safe fraction >= 1 - alpha on 10000 fresh samples.
     Returns the kernel calls of the run."""
-    from riskaversetrajopt_torch.core.config import DroneScenario, SolverConfig
+    from riskaversetrajopt_torch.core.config import DroneScenario
     from riskaversetrajopt_torch.models.drone import DroneModel
     from riskaversetrajopt_torch.scp.driver import SAATrajOpt
 
-    cfg = SolverConfig(eps_abs=1e-4, eps_rel=1e-4, max_iter=20000,
-                       polish=False, rho_warm_start=True)
     opt = SAATrajOpt(DroneModel(DroneScenario(M=M)), scp_cfg=golden_scp_config(),
-                     qp_backend=backend, admm_cfg=cfg, dtype=torch.float32)
+                     qp_backend=backend, admm_cfg=fused_config(),
+                     dtype=torch.float32)
     om = load_omegas(torch, torch.float32, dev)
     counter.launches = 0
     t0 = time.perf_counter()
@@ -556,6 +595,359 @@ def phase6(torch, problem):
                else "rejected (it did not lower both residuals)"))
 
 
+def car_opt(torch, **kw):
+    """The car at the reference's size, CarScenario() defaults (M=50, S=20,
+    K=20, n=40, n_fc=4; its SCP config: 15 iterations, scp_iter 0 gated),
+    on the card."""
+    from riskaversetrajopt_torch.core.config import CarScenario
+    from riskaversetrajopt_torch.models.car import CarModel
+    from riskaversetrajopt_torch.scp.driver import SAATrajOpt
+
+    return SAATrajOpt(CarModel(CarScenario()), **kw)
+
+
+def b2_default_steps(torch, pf, s0, d, iters, what):
+    """B2 at "default" over `iters` iterations, each held to one plain
+    iteration from the kernel's own state (kernel_checks.step_err_f), and a
+    chunk of `iters` bit for bit equal on repeat. Returns (rel, abs)."""
+    from riskaversetrajopt_torch.ops.cuda import kernel_checks as kc
+    from riskaversetrajopt_torch.ops.cuda import saa_admm_f as fk
+
+    rel = abs_ = 0.0
+    s = s0
+    for _ in range(iters):
+        step = fk.admm_step_f(pf, s, d, "default")
+        r1, a1 = kc.step_err_f(pf, s, step, d, "default")
+        rel, abs_, s = max(rel, r1), max(abs_, a1), step.state
+    out = fk.admm_chunk_f(pf, s0, d, iters, "default")
+    again = fk.admm_chunk_f(pf, s0, d, iters, "default")
+    torch.cuda.synchronize()
+    log(f"{what}, {iters} iterations: max |kernel - plain| / (1 + |plain|) "
+        f"{rel:.3e}, each iteration from the kernel's state")
+    if rel > KERNEL_TOL:
+        raise AssertionError(f"{what} disagrees with its plain version: {rel:.3e}")
+    if not all(torch.equal(a, b) for a, b in zip(out, again)):
+        raise AssertionError(f"two {what} runs from one state differ")
+    log(f"{what} repeat run: bitwise identical")
+    return rel, abs_
+
+
+def phase7_kernels(torch, dev):
+    """B1, and B2 at each precision, against their plain versions on the
+    car's scaled structure at scp_iter 0 (gated: the y of the samples past
+    the third meet the CVaR row alone, sm_free) and 3, in chunks of the
+    solver's sizes; bit for bit on repeat; timed at the car's shape."""
+    from riskaversetrajopt_torch.ops.cuda import saa_admm as sk
+    from riskaversetrajopt_torch.ops.cuda import saa_admm_f as fk
+
+    opt = car_opt(torch)
+    om = opt.sample(torch.Generator().manual_seed(0), CAR_M)
+    out = {"b1": {}, "b2": {}}
+    for scp_iter in (0, 3):
+        p, d, _, _ = scaled_of(torch, dev, opt, om, CAR_ALPHA, scp_iter)
+        if bool(p.sm_free) != (scp_iter == 0):
+            raise AssertionError(f"car scp_iter {scp_iter}: sm_free {p.sm_free}")
+        s0 = sk.init_scaled_state(p)
+        shape = sk.launch_shape(d, dev)
+        what = f"B1 car scp_iter {scp_iter}"
+        log_shape(what, d, shape)
+        rel, abs_, end, epi = kernel_vs_plain(
+            torch, lambda s, k: sk.admm_chunk(p, s, d, k),
+            lambda s: sk.one_iter_ref(p, s, d), s0, CHUNK, what, epigraph=True)
+        t_k = cuda_time(torch, lambda: sk.admm_chunk(p, s0, d, CHUNK), 10)
+        b_ms, b_by = bound((*p, *s0), end, d, CHUNK)
+        log(f"{what}: {t_k * 1e6 / CHUNK:.2f} us/iter, bound "
+            f"{b_ms * 1e3 / CHUNK:.3f} us/iter ({b_by}) (chunk {CHUNK})")
+        out["b1"][f"scp_iter_{scp_iter}"] = {
+            "M": d.M, "K": d.K, "n": d.n, "n_fc": d.n_fc,
+            "us_per_iter": t_k * 1e6 / CHUNK, "bound_us_per_iter": b_ms * 1e3 / CHUNK,
+            "bound_by": b_by, "max_rel_err": rel, "max_abs_err": abs_,
+            "epigraph_err": epi, **shape_fields(shape)}
+        pf, sf0 = fk.to_f(p, d), fk.state_to_f(s0, d)
+        for prec in PRECISIONS:
+            shape = fk.launch_shape_f(d, dev, prec)
+            what = f"B2 {prec} car scp_iter {scp_iter}"
+            log_shape(what, d, shape)
+            epi = None  # "default" runs the free-row code of the others
+            if prec == "default":
+                rel, abs_ = b2_default_steps(torch, pf, sf0, d, CHUNK_F, what)
+            else:
+                rel, abs_, _, epi = kernel_vs_plain(
+                    torch, lambda s, k: fk.admm_chunk_f(pf, s, d, k, prec),
+                    lambda s: fk.one_iter_ref_f(pf, s, d, prec), sf0, CHUNK_F,
+                    what, epigraph=True)
+            t_k = cuda_time(
+                torch, lambda: fk.admm_chunk_f(pf, sf0, d, CHUNK_F, prec), 10)
+            b_ms, b_by = bound((pf.G2, *pf[2:], *sf0), sf0, d, CHUNK_F, prec)
+            log(f"{what}: {t_k * 1e6 / CHUNK_F:.2f} us/iter, bound "
+                f"{b_ms * 1e3 / CHUNK_F:.3f} us/iter ({b_by}) (chunk {CHUNK_F})")
+            out["b2"].setdefault(f"scp_iter_{scp_iter}", {})[prec] = {
+                "us_per_iter": t_k * 1e6 / CHUNK_F,
+                "bound_us_per_iter": b_ms * 1e3 / CHUNK_F, "bound_by": b_by,
+                "max_rel_err": rel, "max_abs_err": abs_, "epigraph_err": epi,
+                **shape_fields(shape)}
+    return out
+
+
+def car_checks(model, res, omegas, alpha):
+    """tests/test_scp_car.py's contract but the L2 line: every iterate
+    finite, the sample-mean ego final state within 2e-2 of the goal, the
+    training-sample AVaR of the worst separation violation <= 5e-2, and
+    |u| <= u_max + 1e-6. Returns (final-state error, AVaR, max |u|)."""
+    import torch
+
+    from riskaversetrajopt_torch.ops.cvar import avar
+
+    for name in ("us", "xs", "l2_errors", "us_history"):
+        if not bool(torch.isfinite(getattr(res, name)).all()):
+            raise AssertionError(f"car {name} is not finite")
+    goal = torch.cat([model.scn.position_ego_goal,
+                      model.scn.velocity_ego_goal]).to(res.xs)
+    final = float(torch.max(torch.abs(res.xs[:, -1, :4].mean(0) - goal)))
+    worst = torch.amax(model.ineq_constraints(res.xs, omegas), dim=1)
+    risk = float(avar(worst, alpha))
+    umax = float(torch.max(torch.abs(res.us)))
+    if not (final <= 2e-2 and risk <= 5e-2 and umax <= model.scn.u_max + 1e-6):
+        raise AssertionError(f"car contract: final-state error {final:.3e}, "
+                             f"AVaR {risk:.3e}, max |u| {umax:.3f}")
+    return final, risk, umax
+
+
+def phase7_scp(torch, dev):
+    """The car SCP through float64 'admm' (the driver's default solver
+    config) and the float32 '_admm-pallas' and '_admm-pallas-f' (phase 3's
+    solver config), each held to car_checks, f64 'admm' also to final
+    L2 < 2e-2; Monte Carlo on 10000 fresh samples for each beside f64
+    'admm''s on the same samples. Returns each fused kernel's launches."""
+    from riskaversetrajopt_torch.ops.cuda import saa_admm as sk
+    from riskaversetrajopt_torch.ops.cuda import saa_admm_f as fk
+
+    opt64 = car_opt(torch)
+    om = opt64.sample(torch.Generator().manual_seed(0), CAR_M)
+    mc_om = opt64.sample(torch.Generator().manual_seed(99), 10000)
+    launches = {}
+    for backend, counter in (("admm", None), ("_admm-pallas", sk.admm_chunk),
+                             ("_admm-pallas-f", fk.admm_chunk_f)):
+        opt = opt64 if counter is None else car_opt(
+            torch, qp_backend=backend, admm_cfg=fused_config(),
+            dtype=torch.float32)
+        sk.admm_chunk.launches = fk.admm_chunk_f.launches = 0
+        t0 = time.perf_counter()
+        res = opt.solve(om, alpha=CAR_ALPHA)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = sk.admm_chunk.launches, fk.admm_chunk_f.launches
+        final, risk, umax = car_checks(opt.model, res,
+                                       opt._cast_omegas(om), CAR_ALPHA)
+        l2 = float(res.l2_errors[-1])
+        if counter is None and not l2 < 2e-2:
+            raise AssertionError(f"car f64 'admm' final L2 {l2:.3e}")
+        if counter is not None:
+            launches[backend] = counter.launches
+            if counter.launches == 0:
+                raise AssertionError(f"car {backend!r} did not launch its kernel")
+        elif any(counts):
+            raise AssertionError("car f64 'admm' launched a fused kernel")
+        mc = opt64.monte_carlo(res.us.to(torch.float64), mc_om, CAR_ALPHA)
+        iters = res.qp_iters.tolist()
+        log(f"car {'f64' if counter is None else 'f32'} {backend}: {wall:.2f} s, "
+            f"kernel calls B1 {counts[0]} B2 {counts[1]}, {sum(iters)} ADMM "
+            f"iterations, qp_iters {iters}, QPs certified "
+            f"{int(res.qp_solved.sum())} of {len(iters)}, final L2 {l2:.3e}, "
+            f"mean final-state error {final:.3e}, training AVaR {risk:.3e}, "
+            f"max |u| {umax:.3f}")
+        log(f"  MC (10000 samples, seed 99): safe {float(mc['safe_frac']):.4f}, "
+            f"AVaR {float(mc['avar']):.4f}, cost {float(mc['cost']):.4f}")
+    return launches
+
+
+def phase8_instrumented(torch, dev, opt64):
+    """solve_instrumented on the drone at M=1000 (the fixture omegas, the
+    golden SCP config, phase 3's solver config) through '_admm-pallas': the
+    median define and solve ms per SCP iteration; every iterate finite and
+    phase 3's MC check. Returns kernel B1's launches in the run (the
+    warm-up pass included)."""
+    from riskaversetrajopt_torch.core.config import DroneScenario
+    from riskaversetrajopt_torch.models.drone import DroneModel
+    from riskaversetrajopt_torch.ops.cuda import saa_admm as sk
+    from riskaversetrajopt_torch.scp.driver import SAATrajOpt
+
+    opt = SAATrajOpt(DroneModel(DroneScenario(M=M)), scp_cfg=golden_scp_config(),
+                     qp_backend="_admm-pallas", admm_cfg=fused_config(),
+                     dtype=torch.float32)
+    om = load_omegas(torch, torch.float32, dev)
+    sk.admm_chunk.launches = 0
+    t0 = time.perf_counter()
+    out = opt.solve_instrumented(om, ALPHA)
+    wall = time.perf_counter() - t0
+    launches = sk.admm_chunk.launches
+    import numpy as np
+
+    if launches == 0:
+        raise AssertionError("solve_instrumented did not launch kernel B1")
+    if not (bool(torch.isfinite(out["us"]).all())
+            and bool(torch.isfinite(out["xs"]).all())):
+        raise AssertionError("solve_instrumented iterate is not finite")
+    d_ms, s_ms = (float(np.median(out[k])) * 1e3
+                  for k in ("define_times", "solve_times"))
+    per_it = {k: [round(float(x) * 1e3, 2) for x in out[k]]
+              for k in ("define_times", "solve_times")}
+    mc = opt64.monte_carlo(out["us"].to(torch.float64),
+                           opt64.sample(torch.Generator().manual_seed(99), 10000),
+                           ALPHA)
+    safe = float(mc["safe_frac"])
+    log(f"solve_instrumented M={M} '_admm-pallas': {wall:.2f} s with the warm-up "
+        f"pass, {launches} kernel calls; per SCP iteration median define "
+        f"{d_ms:.2f} ms, median solve {s_ms:.2f} ms; define ms "
+        f"{per_it['define_times']}, solve ms {per_it['solve_times']}; final L2 "
+        f"{out['l2_errors'][-1]:.3e}; MC safe {safe:.4f}")
+    if not safe >= 1 - ALPHA:
+        raise AssertionError(f"MC safe fraction {safe:.4f} < {1 - ALPHA}")
+    return launches, {"define_ms_median": d_ms, "solve_ms_median": s_ms,
+                      "define_ms": per_it["define_times"],
+                      "solve_ms": per_it["solve_times"]}
+
+
+def phase8_resume_and_many(torch, dev):
+    """The drone at M=50 through '_admm-pallas' (the kernel is
+    deterministic): a checkpoint written at iteration 4 and resumed to 15
+    reaches the uninterrupted run's controls within 1e-5 relative, and
+    solve_many over B=2 instances equals per-instance solve bit for bit.
+    Returns kernel B1's launches in the resumed solve and in solve_many,
+    each counted from 0 just before its call and read just after."""
+    import tempfile
+    from dataclasses import replace
+
+    from riskaversetrajopt_torch.core.config import DroneScenario
+    from riskaversetrajopt_torch.models.drone import DroneModel
+    from riskaversetrajopt_torch.ops.cuda import saa_admm as sk
+    from riskaversetrajopt_torch.scp.driver import SAATrajOpt
+    from riskaversetrajopt_torch.utils import checkpoint as ckpt
+
+    def drone(iters):
+        return SAATrajOpt(DroneModel(DroneScenario(M=50)),
+                          scp_cfg=replace(golden_scp_config(), num_iters=iters),
+                          qp_backend="_admm-pallas", admm_cfg=fused_config(),
+                          dtype=torch.float32)
+
+    opt = drone(SCP_ITERS)
+    oms = [opt.sample(torch.Generator().manual_seed(s), 50) for s in (0, 1)]
+    launches = {}
+    full = opt.solve(oms[0], ALPHA)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/scp.npz"
+        drone(4).solve(oms[0], ALPHA, checkpoint_path=path)
+        if ckpt.load(path).scp_iter != 4:
+            raise AssertionError("the checkpoint was not written at iteration 4")
+        sk.admm_chunk.launches = 0
+        resumed = opt.solve(oms[0], ALPHA, checkpoint_path=path)
+        launches["drone M=50 resumed solve (phase 8)"] = sk.admm_chunk.launches
+    rel = float(torch.linalg.norm(resumed.us - full.us) / torch.linalg.norm(full.us))
+    log(f"checkpoint at 4 resumed to {SCP_ITERS}: {resumed.qp_iters.numel()} "
+        f"iterations run, final controls {rel:.3e} relative from the "
+        f"uninterrupted run")
+    if not rel <= 1e-5:
+        raise AssertionError(f"resumed controls {rel:.3e} from the uninterrupted run")
+    alphas = [ALPHA, 0.1]
+    sk.admm_chunk.launches = 0
+    many = opt.solve_many(type(oms[0])(*(torch.stack(f) for f in zip(*oms))),
+                          alphas)
+    launches["drone M=50 solve_many B=2 (phase 8)"] = sk.admm_chunk.launches
+    for i, om in enumerate(oms):
+        one = opt.solve(om, alphas[i])
+        for name, a, b in zip(one._fields, many, one):
+            if not torch.equal(a[i].cpu(), b.cpu()):
+                raise AssertionError(f"solve_many instance {i} {name} differs "
+                                     "from its solve")
+    log("solve_many over B=2 (alphas 0.2, 0.1): bit for bit each instance's "
+        f"solve; B1 launches {launches}")
+    for path, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"{path}: kernel B1 was not launched")
+    return launches
+
+
+def run_cli(main, argv, dev):
+    """main(argv, device=dev) with its standard output captured and echoed:
+    returns the output and the wall seconds."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        main(argv, device=dev)
+    wall = time.perf_counter() - t0
+    for line in buf.getvalue().splitlines():
+        log("  | " + line)
+    return buf.getvalue(), wall
+
+
+def phase8_clis(torch, dev):
+    """drone_risk.main and driving.main into a temporary directory at M=50
+    (their default), with --repeats 2 and 15 SCP iterations (alphas 0.2
+    and 0.1): the reference file layout, median final L2 < 1e-2, and the
+    drone SAA safe(mean) above the baseline's safe fraction."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        drone_cli(dev, f"{tmp}/drone")
+        car_cli(dev, f"{tmp}/car")
+
+
+def drone_cli(dev, rdir):
+    import re
+
+    from riskaversetrajopt_torch.experiments import common, drone_risk
+
+    out, wall = run_cli(drone_risk.main, [
+        "--repeats", "2", "--alphas", "0.2", "--scp-iters", str(SCP_ITERS),
+        "--results", rdir], dev)
+    files = sorted(p.name for p in Path(rdir).iterdir())
+    want = ["drone_alpha=0.2_repeat=0.npy", "drone_alpha=0.2_repeat=1.npy",
+            "drone_baseline.npy"]
+    l2 = float(re.search(r"final L2 \(median over sweep\): (\S+)", out)[1])
+    saa = float(re.search(r"alpha=0.2: safe\(mean\)=(\S+)", out)[1])
+    base = float(re.search(r"baseline: safe=(\S+)", out)[1])
+    stages = re.findall(r"stage wall time (\S+) s", out)
+    log(f"drone_risk CLI: {wall:.2f} s (stages SAA / baseline / MC "
+        f"{' / '.join(stages)} s), files {files}, median final L2 "
+        f"{l2:.3e}, SAA safe(mean) {saa:.4f}, baseline safe {base:.4f}")
+    if files != want or not l2 < 1e-2 or not saa > base:
+        raise AssertionError("drone_risk CLI: wrong files, L2 or safety")
+    for f in want:
+        us, xs = common.load_traj(f"{rdir}/{f}")
+        if us.shape != (20, 3) or xs.shape != (50, 21, 6):
+            raise AssertionError(f"{f}: shapes {us.shape}, {xs.shape}")
+
+
+def car_cli(dev, rdir):
+    import re
+
+    import numpy as np
+
+    from riskaversetrajopt_torch.experiments import common, driving
+
+    out, wall = run_cli(driving.main, [
+        "--repeats", "2", "--alphas", str(CAR_ALPHA), "--scp-iters",
+        str(SCP_ITERS), "--results", rdir], dev)
+    files = sorted(p.name for p in Path(rdir).iterdir())
+    want = ["driving_alpha=0.1_repeat=0.npy", "driving_alpha=0.1_repeat=1.npy",
+            "driving_baseline.npy", "driving_computation_times.npy"]
+    alphas, d_t, s_t, c_t, l2s = common.load_timing(
+        f"{rdir}/driving_computation_times.npy")
+    l2 = float(np.median(l2s[:, :, -1]))
+    stages = re.findall(r"stage wall time (\S+) s", out)
+    log(f"driving CLI: {wall:.2f} s (stages SAA / baseline / MC "
+        f"{' / '.join(stages)} s), files {files}, median final L2 {l2:.3e}, "
+        f"define/solve ms per SCP iteration (median) "
+        f"{np.median(d_t) * 1e3:.2f} / {np.median(s_t) * 1e3:.2f}")
+    if files != want or not l2 < 1e-2 or d_t.shape != (2, 1, SCP_ITERS):
+        raise AssertionError("driving CLI: wrong files, L2 or timing shape")
+    if "run the driving_gaussian experiment first" not in out:
+        raise AssertionError("driving CLI: no Gaussian-baseline message")
+
+
 def main():
     if not (REPO / "riskaversetrajopt_torch").is_dir():
         print("chip_smoke.py: riskaversetrajopt_torch/ not found next to "
@@ -589,17 +981,34 @@ def main():
     opt64, gold = phase2(torch, dev)
     log(f"[phase 2] {time.perf_counter() - t:.2f} s")
     t = time.perf_counter()
-    b1["launches"] = phase3(torch, dev, opt64, gold)
+    paths1, paths2 = {}, {}
+    paths1["drone M=1000 solve (phase 3)"] = phase3(torch, dev, opt64, gold)
     log(f"[phase 3] {time.perf_counter() - t:.2f} s")
     t = time.perf_counter()
     b2.update(phase4(torch, problem))
     log(f"[phase 4] {time.perf_counter() - t:.2f} s")
     t = time.perf_counter()
-    b2["launches"] = phase5(torch, dev, opt64, gold)
+    paths2["drone M=1000 solve (phase 5)"] = phase5(torch, dev, opt64, gold)
     log(f"[phase 5] {time.perf_counter() - t:.2f} s")
     t = time.perf_counter()
     phase6(torch, problem)
     log(f"[phase 6] {time.perf_counter() - t:.2f} s")
+    t = time.perf_counter()
+    car = phase7_kernels(torch, dev)
+    b1["car"], b2["car"] = car["b1"], car["b2"]
+    car_launches = phase7_scp(torch, dev)
+    # this slice's main path: the car's SCP through each kernel
+    b1["launches"] = paths1["car M=50 solve (phase 7)"] = car_launches["_admm-pallas"]
+    b2["launches"] = paths2["car M=50 solve (phase 7)"] = car_launches["_admm-pallas-f"]
+    log(f"[phase 7] {time.perf_counter() - t:.2f} s")
+    t = time.perf_counter()
+    n_instr, split = phase8_instrumented(torch, dev, opt64)
+    paths1["drone M=1000 solve_instrumented (phase 8)"] = n_instr
+    b1["define_solve_split_m1000"] = split
+    paths1.update(phase8_resume_and_many(torch, dev))
+    phase8_clis(torch, dev)
+    log(f"[phase 8] {time.perf_counter() - t:.2f} s")
+    b1["launches_by_path"], b2["launches_by_path"] = paths1, paths2
     for k in (b1, b2):
         k["card"] = smi
     print(json.dumps({"kernels": [b1, b2]}))

@@ -1,5 +1,5 @@
-"""Typed configuration for the drone scenario, the SCP driver and the ADMM
-solver.
+"""Typed configuration for the drone and car scenarios, the SCP driver and
+the ADMM solver.
 
 Field for field the dataclasses of ``riskaversetrajopt_tpu/core/config.py``
 (same names, same defaults; the comments there explain each knob). Array
@@ -9,6 +9,7 @@ callers move them to their device and dtype.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import torch
@@ -110,3 +111,73 @@ class DroneScenario:
     @property
     def x_final(self) -> torch.Tensor:
         return torch.zeros(self.n_x, dtype=torch.float64)
+
+
+@dataclass(frozen=True)
+class CarScenario:
+    """Planar ego car + interactive pedestrian (social-force model); values
+    of car/driving_params.py:1-42."""
+
+    n_x: int = 8
+    n_u: int = 2
+    S: int = 20
+    M: int = 50
+    T: float = 10.0
+    u_max: float = 100.0
+    beta: float = 3e-2  # diffusion magnitude, car/driving.py:94
+    omega_speed_nom: float = 0.1
+    omega_speed_del: float = 0.075
+    omega_repulsive_nom: float = 0.05
+    omega_repulsive_del: float = 0.045
+    ego_width: float = 2.695
+    ego_height: float = 1.663
+    ped_radius: float = 0.5
+    speed_ped_des: float = 1.3
+    osqp_tol: float = 3e-4
+
+    @property
+    def dt(self) -> float:
+        return self.T / self.S
+
+    @property
+    def R(self) -> torch.Tensor:
+        return torch.diag(torch.tensor([1.0, 1.0 / 3.0], dtype=torch.float64))
+
+    @property
+    def min_separation_distance(self) -> float:
+        return float(self.ped_radius
+                     + math.sqrt(self.ego_width**2 + self.ego_height**2))
+
+    @property
+    def position_ego_init(self) -> torch.Tensor:
+        return torch.tensor([-20.0, 0.0], dtype=torch.float64)
+
+    @property
+    def position_ped_init(self) -> torch.Tensor:
+        return torch.tensor([0.0, -6.0], dtype=torch.float64)
+
+    @property
+    def velocity_ego_init(self) -> torch.Tensor:
+        return torch.tensor([4.0, 0.0], dtype=torch.float64)
+
+    @property
+    def velocity_ped_init(self) -> torch.Tensor:
+        return torch.tensor([0.0, self.speed_ped_des], dtype=torch.float64)
+
+    @property
+    def position_ego_goal(self) -> torch.Tensor:
+        return torch.tensor([20.0, 0.1], dtype=torch.float64)
+
+    @property
+    def velocity_ego_goal(self) -> torch.Tensor:
+        return torch.tensor([4.1, 0.0], dtype=torch.float64)
+
+    @property
+    def state_init(self) -> torch.Tensor:
+        return torch.cat([self.position_ego_init, self.velocity_ego_init,
+                          self.position_ped_init, self.velocity_ped_init])
+
+    @property
+    def variance_ped_initial_state(self) -> torch.Tensor:
+        return torch.diag(
+            torch.tensor([1e-1, 1e-1, 1e-4, 1e-4], dtype=torch.float64) ** 2)

@@ -30,7 +30,8 @@
 
 namespace {
 
-// Problem data, in the order of ScaledSAA's fields (ops/cuda/saa_admm.py).
+// Problem data, in the order of ScaledSAA's fields (ops/cuda/saa_admm.py)
+// but sm_free, which picks the kernel (the `free_y` argument).
 struct Prob {
   static constexpr int kLayout = kNatural;
   const float *Gs, *eGy, *eGt, *rv_G, *lb_G, *ub_G;
@@ -62,16 +63,17 @@ extern "C" {
 // Runs `chunk` iterations in one cooperative launch on `stream`. ptrs holds,
 // in order: the 30 problem arrays (Prob), the 10 input state arrays, the 10
 // output state arrays (State) and the 5 scratch arrays (Scratch), all
-// float32 device pointers, sized as saa_admm_shape says.
+// float32 device pointers, sized as saa_admm_shape says. `free_y` != 0: the
+// structure's sm_free is set (the cancellation-free KKT form).
 int saa_admm_chunk(const void* const* ptrs, int n_ptrs, int M, int K, int n,
-                   int n_fc, int chunk, void* stream_ptr) {
+                   int n_fc, int chunk, int free_y, void* stream_ptr) {
   Prob p;
   State in, out;
   Scratch sc;
   cudaError_t e = unpack(ptrs, n_ptrs, p, in, out, sc);
   if (e != cudaSuccess) return (int)e;
   return (int)launch_chunk<Prob, kHighest>(p, in, out, sc, Dims{M, K, n, n_fc},
-                                           chunk, (cudaStream_t)stream_ptr);
+                                           chunk, free_y != 0, (cudaStream_t)stream_ptr);
 }
 
 // The launch shape of a chunk call on the current device, into

@@ -41,6 +41,19 @@
 // coef2 is summed per sample, as the plain version sums it: its identity
 // form beta (sum wD r_y - CtwD . v) / denom would save the middle barrier,
 // but takes the difference of two chunk-wide sums in float32.
+// Where some y meets the CVaR row alone (the structure's sm_free, the car's
+// gated iteration: Dinv = 1/sigma = 1e6 there), Dinv r_y - coef wD cancels
+// terms 1e6 times its result and float32 diverges; then (the template flag
+// FREE, chosen by the caller, so that a structure without such y runs a
+// kernel compiled without the branch) the same columns carry
+// the cancellation-free form of ops/cuda/saa_admm.py:kkt_solve: phase 1
+// keeps B1 = yd_hat w_y + sum_k eGy w per sample and writes
+// X1 = sum (cy_hat a y - wD B1) and Cbar^T (a y - Dinv B1), a = Dinv
+// sigma; phase 2 takes Cbar^T g_y = Cbar^T (a y - Dinv B1) + kappa1 CtwD,
+// kappa1 = (w_c - beta X1) / denom, and per sample cv = Cbar v - beta
+// cy_hat (cs_hat s_t + ct_hat t_t) and its sum of wD cv; phase 3 forms
+// y_t = a y - Dinv (B1 + cv) + wD kappa2 with kappa2 = (w_c - beta (cs_hat
+// s_t + ct_hat t_t) - beta (X1 - sum wD cv)) / denom.
 // No float atomics: every sum runs in a fixed order, so every block reduces
 // to the same bits and two runs from one state agree bit for bit.
 //
@@ -269,8 +282,9 @@ template <> struct Slab<kDefault> {
 
 // P is the layout's problem struct (Prob or ProbF): the same field names
 // but for G, read through p.g(), and P::kLayout. GRES: the G slab is in
-// shared memory; RRES: the rows are (Shape's g_res and rows_res).
-template <class P, int PREC, bool GRES, bool RRES>
+// shared memory; RRES: the rows are (Shape's g_res and rows_res). FREE: the
+// cancellation-free KKT form of a structure with sm_free set.
+template <class P, int PREC, bool GRES, bool RRES, bool FREE>
 __global__ void __launch_bounds__(kThreads, 1)
 admm_chunk_kernel(P p, State in, State out, Scratch sc, Dims d, Shape sh, int chunk) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -515,11 +529,17 @@ admm_chunk_kernel(P p, State in, State out, Scratch sc, Dims d, Shape sh, int ch
         b = warp_sum(b);
         if (lane == 0) {
           const float w_y = row_w(SA(kRvy)[s], SA(kZy)[s], SA(kYdy)[s]);
-          const float r_y = sig * SA(kY)[s] + SA(kCy)[s] * wc - SA(kYdh)[s] * w_y - a;
-          SA(kRy)[s] = r_y;
           egt += b;
           ysw += SA(kYsh)[s] * w_y;
-          wdr += SA(kWd)[s] * r_y;
+          if constexpr (FREE) {
+            const float b1 = SA(kYdh)[s] * w_y + a;
+            SA(kRy)[s] = b1;
+            wdr += SA(kCy)[s] * (SA(kDinv)[s] * sig) * SA(kY)[s] - SA(kWd)[s] * b1;
+          } else {
+            const float r_y = sig * SA(kY)[s] + SA(kCy)[s] * wc - SA(kYdh)[s] * w_y - a;
+            SA(kRy)[s] = r_y;
+            wdr += SA(kWd)[s] * r_y;
+          }
         }
       }
       if (lane == 0) {
@@ -571,7 +591,7 @@ admm_chunk_kernel(P p, State in, State out, Scratch sc, Dims d, Shape sh, int ch
     }
     __syncthreads();
     // the block's partial row: u_part, sum ys_hat w_y, sum eGt w, sum wD r_y
-    // and Cbar^T (Dinv r_y)
+    // and Cbar^T (Dinv r_y) (with FREE: X1 and Cbar^T (a y - Dinv B1))
     for (int j = tid; j < nv; j += kThreads) {
       float x = 0.0f;
       if (j < n) {
@@ -582,7 +602,13 @@ admm_chunk_kernel(P p, State in, State out, Scratch sc, Dims d, Shape sh, int ch
       }
       __stcg(prow + j, x);
       float cd = 0.0f;
-      for (int s = 0; s < Sb; ++s) cd += cbar[s * nv + j] * (SA(kDinv)[s] * SA(kRy)[s]);
+      if constexpr (FREE) {
+        for (int s = 0; s < Sb; ++s)
+          cd += cbar[s * nv + j] *
+                ((SA(kDinv)[s] * sig) * SA(kY)[s] - SA(kDinv)[s] * SA(kRy)[s]);
+      } else {
+        for (int s = 0; s < Sb; ++s) cd += cbar[s * nv + j] * (SA(kDinv)[s] * SA(kRy)[s]);
+      }
       __stcg(prow + n + 3 + j, cd);
     }
     if (tid == kThreads - 1) {
@@ -616,9 +642,10 @@ admm_chunk_kernel(P p, State in, State out, Scratch sc, Dims d, Shape sh, int ch
     }
     __syncthreads();
     // r_v = rhs - Cbar^T g_y, with Cbar^T g_y = Cbar^T (Dinv r_y) - coef CtwD
+    // (FREE: Cbar^T (a y - Dinv B1) + kappa1 CtwD)
     {
       const float wc = wsm[n_fc], ws = wsm[n_fc + 1];
-      const float coef = beta * pr[n + 2] / denom;
+      const float coef = FREE ? -((wc - beta * pr[n + 2]) / denom) : beta * pr[n + 2] / denom;
       for (int j = tid; j < nv; j += kThreads) {
         float rhs;
         if (j < n) {
@@ -653,16 +680,24 @@ admm_chunk_kernel(P p, State in, State out, Scratch sc, Dims d, Shape sh, int ch
     }
     __syncthreads();
     const float s_t = v[n], t_t = v[n + 1];
+    const float c2 = cs_hat * s_t + ct_hat * t_t;
     // q = r_y - Cbar v of the block's samples (one thread per sample, in
-    // order over j) and the block's sum of wD q
+    // order over j) and the block's sum of wD q (FREE: cv = Cbar v - beta
+    // cy_hat c2, B1 + cv and the sum of wD cv)
     {
       float wq = 0.0f;
       for (int s = tid; s < Sb; s += kThreads) {
         float a = 0.0f;
         for (int j = 0; j < nv; ++j) a = fmaf(cbar[s * nv + j], v[j], a);
-        const float q = SA(kRy)[s] - a;
-        SA(kRy)[s] = q;
-        wq += SA(kWd)[s] * q;
+        if constexpr (FREE) {
+          const float cv = a - beta * SA(kCy)[s] * c2;
+          SA(kRy)[s] += cv;
+          wq += SA(kWd)[s] * cv;
+        } else {
+          const float q = SA(kRy)[s] - a;
+          SA(kRy)[s] = q;
+          wq += SA(kWd)[s] * q;
+        }
       }
       wq = warp_sum(wq);
       if (lane == 0) wsum[warp] = wq;
@@ -697,12 +732,17 @@ admm_chunk_kernel(P p, State in, State out, Scratch sc, Dims d, Shape sh, int ch
 
     // ======== phase 3 (per block) ========
     // coef2 = beta sum wD q / denom (every warp reduces it), y_t and the y
-    // rows, one thread per sample
+    // rows, one thread per sample (FREE: kappa2 in place of -coef2)
     {
-      const float coef2 = beta * grid_col_sum(col.wq) / denom;
+      const float swq = grid_col_sum(col.wq);
+      const float coef2 =
+          FREE ? -((wsm[n_fc] - beta * c2 - beta * (pr[n + 2] - swq)) / denom)
+                 : beta * swq / denom;
       float cyy = 0.0f;
       for (int s = tid; s < Sb; s += kThreads) {
-        const float yt = SA(kDinv)[s] * SA(kRy)[s] - coef2 * SA(kWd)[s];
+        const float yt = FREE ? (SA(kDinv)[s] * sig) * SA(kY)[s] -
+                                      SA(kDinv)[s] * SA(kRy)[s] - coef2 * SA(kWd)[s]
+                                : SA(kDinv)[s] * SA(kRy)[s] - coef2 * SA(kWd)[s];
         SA(kYt)[s] = yt;
         cyy += SA(kCy)[s] * yt;
         const float zt_y = -SA(kYdh)[s] * yt - SA(kYsh)[s] * s_t;
@@ -857,19 +897,26 @@ cudaError_t unpack(const void* const* ptrs, int n_ptrs, P& p, State& in, State& 
   return cudaSuccess;
 }
 
+// The chunk kernel for a launch shape, with or without the free-row form.
+template <class P, int PREC, bool FREE>
+const void* chunk_kernel(const Shape& sh) {
+  return sh.g_res      ? (const void*)admm_chunk_kernel<P, PREC, true, true, FREE>
+         : sh.rows_res ? (const void*)admm_chunk_kernel<P, PREC, false, true, FREE>
+                       : (const void*)admm_chunk_kernel<P, PREC, false, false, FREE>;
+}
+
 // One chunk call: plan, then one cooperative launch on `stream`. A launch
 // the card refuses (for instance a grid that cannot be co-resident) returns
 // its error, which is also cleared so that later calls on the device do not
-// see it.
+// see it. free_y: the structure has sm_free set (the cancellation-free KKT
+// form).
 template <class P, int PREC>
 cudaError_t launch_chunk(P p, State in, State out, Scratch sc, Dims d, int chunk,
-                         cudaStream_t stream) {
+                         bool free_y, cudaStream_t stream) {
   Shape sh;
   cudaError_t e = plan(d, PREC, sh);
   if (e != cudaSuccess) return e;
-  const void* fn = sh.g_res      ? (const void*)admm_chunk_kernel<P, PREC, true, true>
-                  : sh.rows_res ? (const void*)admm_chunk_kernel<P, PREC, false, true>
-                                : (const void*)admm_chunk_kernel<P, PREC, false, false>;
+  const void* fn = free_y ? chunk_kernel<P, PREC, true>(sh) : chunk_kernel<P, PREC, false>(sh);
   e = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, sh.smem);
   if (e == cudaSuccess) {
     void* args[] = {&p, &in, &out, &sc, &d, &sh, &chunk};

@@ -39,7 +39,8 @@
 
 namespace {
 
-// Problem data, in the order of ScaledSAAF's fields (ops/cuda/saa_admm_f.py).
+// Problem data, in the order of ScaledSAAF's fields (ops/cuda/saa_admm_f.py)
+// but sm_free, which picks the kernel (the `free_y` argument).
 struct ProbF {
   static constexpr int kLayout = kFlat;
   const float *G2, *G2T, *eGy, *eGt, *rv_G, *lb_G, *ub_G;
@@ -61,9 +62,10 @@ extern "C" {
 // one cooperative launch on `stream`. ptrs holds, in order: the 31 problem
 // arrays (ProbF), the 10 input state arrays, the 10 output state arrays
 // (State) and the 5 scratch arrays (Scratch), all float32 device pointers,
-// sized as saa_admm_f_shape says.
+// sized as saa_admm_f_shape says. `free_y` != 0: the structure's sm_free is
+// set (the cancellation-free KKT form).
 int saa_admm_f_chunk(const void* const* ptrs, int n_ptrs, int M, int K, int n,
-                     int n_fc, int chunk, int precision, void* stream_ptr) {
+                     int n_fc, int chunk, int precision, int free_y, void* stream_ptr) {
   if (precision < kHighest || precision > kDefault) return (int)cudaErrorInvalidValue;
   ProbF p;
   State in, out;
@@ -72,13 +74,14 @@ int saa_admm_f_chunk(const void* const* ptrs, int n_ptrs, int M, int K, int n,
   if (e != cudaSuccess) return (int)e;
   const Dims d{M, K, n, n_fc};
   cudaStream_t stream = (cudaStream_t)stream_ptr;
+  const bool fr = free_y != 0;
   switch (precision) {
     case kHighest:
-      return (int)launch_chunk<ProbF, kHighest>(p, in, out, sc, d, chunk, stream);
+      return (int)launch_chunk<ProbF, kHighest>(p, in, out, sc, d, chunk, fr, stream);
     case kHigh:
-      return (int)launch_chunk<ProbF, kHigh>(p, in, out, sc, d, chunk, stream);
+      return (int)launch_chunk<ProbF, kHigh>(p, in, out, sc, d, chunk, fr, stream);
     default:
-      return (int)launch_chunk<ProbF, kDefault>(p, in, out, sc, d, chunk, stream);
+      return (int)launch_chunk<ProbF, kDefault>(p, in, out, sc, d, chunk, fr, stream);
   }
 }
 

@@ -25,6 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from riskaversetrajopt_torch.models.car import CarOmega
 from riskaversetrajopt_torch.models.drone import DroneOmega
 from riskaversetrajopt_torch.ops.admm import Scaling
 from riskaversetrajopt_torch.ops.cuda.saa_admm import ScaledSAA, ScaledState
@@ -50,6 +51,10 @@ def drone_omega(om, device="cpu", dtype=torch.float64) -> DroneOmega:
     return _convert(om, DroneOmega, device, dtype)
 
 
+def car_omega(om, device="cpu", dtype=torch.float64) -> CarOmega:
+    return _convert(om, CarOmega, device, dtype)
+
+
 def saa_qp_data(data, device="cpu", dtype=torch.float64) -> SAAQPData:
     return _convert(data, SAAQPData, device, dtype)
 
@@ -69,11 +74,16 @@ def _lower(v):
     return v
 
 
-def _shared_fields(a, colp, dims):
+def _shared_fields(a, colp, dims, eGy):
     """The fields both kernel layouts take alike: per-sample colp slots,
-    small rows, Fs, cu, q_hat_u, Sinv, Cbar and the scalars."""
+    small rows, Fs, cu, q_hat_u, Sinv, Cbar, the scalars, and the port's
+    sm_free (some y meets the CVaR row alone), read off yd_hat, cy_hat and
+    the (M, K) eGy."""
     n, n_fc, M = dims.n, dims.n_fc, dims.M
+    free = np.any((colp[:M, 5] == 0) & np.all(eGy == 0, axis=1)
+                  & (colp[:M, 4] != 0))
     out = dict(
+        sm_free=np.float32(free),
         rv_y=colp[:M, 0], lb_y=_lower(colp[:M, 1]), ub_y=colp[:M, 2],
         cy_hat=colp[:M, 4], yd_hat=colp[:M, 5], ys_hat=colp[:M, 6],
         Dinv=colp[:M, 7], wD=colp[:M, 8],
@@ -119,7 +129,7 @@ def scaled_saa(p, dims, device="cpu") -> ScaledSAA:
         Gs=Gs[:M, :K, :n],
         eGy=mk(a["eGy"]), eGt=mk(a["eGt"]), rv_G=mk(a["rv_G"]),
         lb_G=_lower(mk(a["lb_G"])), ub_G=mk(a["ub_G"]),
-        **_shared_fields(a, a["colp"], dims),
+        **_shared_fields(a, a["colp"], dims, mk(a["eGy"])),
     )
     return _tensors(ScaledSAA, out, device)
 
@@ -150,7 +160,8 @@ def scaled_saa_f(pf, dims, device="cpu") -> ScaledSAAF:
         eGy_f=_f_rows(a["eGy_f"], dims), eGt_f=_f_rows(a["eGt_f"], dims),
         rvG_f=_f_rows(a["rvG_f"], dims), lbG_f=_lower(_f_rows(a["lbG_f"], dims)),
         ubG_f=_f_rows(a["ubG_f"], dims),
-        **_shared_fields(a, a["colpF"].T, dims),
+        **_shared_fields(a, a["colpF"].T, dims,
+                         _f_rows(a["eGy_f"], dims).reshape(K, M).T),
     )
     return _tensors(ScaledSAAF, out, device)
 

@@ -11,6 +11,11 @@ shared by chip_smoke.py and tests/test_torch_cuda_kernels.py.
   order of sums; where the two round to different bf16 values (and only
   there) the sample rows may move by that bf16 step, and that much is
   allowed for.
+- `epigraph_err`: the CVaR-epigraph variables s and t and the y, each
+  against its own scale. On the car's gated structure (sm_free) the state
+  measure is set by the float32 noise of the equality-row duals, and reads
+  the same for a kernel whose free-row KKT form is wrong; these fields,
+  which that form computes, are where a fault shows.
 - `sweep_errs_f` / `check_sweeps_f`: the two sweeps of one B2 iteration
   against float64 arithmetic of each sweep precision on the kernel's own
   operands. The state measure cannot tell the precisions apart: the
@@ -55,6 +60,30 @@ def state_err(a, b, allow=None):
         rel = max(rel, float(torch.max(diff / (1.0 + torch.abs(y)))))
         abs_ = max(abs_, float(torch.max(diff)))
     return rel, abs_
+
+
+# `epigraph_err` of a kernel against its plain version on the car's
+# structure (chip_smoke.py phase 7, the GPU tests). Two correct float32
+# orders of sums read <= 1.7e-4 there (B1 and B2 "highest"/"high", scp_iter
+# 0 and 3, 25-100 iterations); a kernel with the sign of wD B1 in X1
+# flipped reads 2.8e-3-3.4e-3 (PERF.md).
+EPIGRAPH_TOL = 1e-3
+
+
+def epigraph_err(a, b):
+    """Max over the fields s, t and y of two iterates of
+    max |a - b| / max |b|: inf where a is not finite, or b is 0 and a is
+    not."""
+    err = 0.0
+    for name in ("s", "t", "y"):
+        x, y = getattr(a, name), getattr(b, name)
+        if not bool(torch.isfinite(x).all()):
+            return float("inf")
+        diff = float(torch.max(torch.abs(x - y)))
+        scale = float(torch.max(torch.abs(y)))
+        err = max(err, diff / scale if scale > 0 else
+                  (float("inf") if diff > 0 else 0.0))
+    return err
 
 
 def step_err_f(pf: ScaledSAAF, s: ScaledStateF, step: StepF, d,

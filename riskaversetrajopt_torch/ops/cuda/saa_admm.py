@@ -8,10 +8,12 @@ saa_admm.py`` in the natural layout: the scaled Jacobian stack Gs is
 TPU tile padding, the packed column slots and the lane masks are gone.
 
 The scaled problem folds Ruiz D/E/c, the gating and the MULTIPLIER into
-kernel-ready arrays (`scaled_structure`). The KKT solve eliminates the y
-block by Sherman-Morrison with the column-scaled CVaR rank-1 vector and
-applies the explicit inverse of the (n+2) Schur complement, formed in
-float64 whatever the working dtype.
+kernel-ready arrays (`scaled_structure`). The KKT solve (`kkt_solve`)
+eliminates the y block by Sherman-Morrison with the column-scaled CVaR
+rank-1 vector and applies the explicit inverse of the (n+2) Schur
+complement, formed in float64 whatever the working dtype. Where some y
+meets the CVaR row alone (the car's gated iteration, `sm_free`), the
+Sherman-Morrison step takes a form that float32 can carry (`kkt_solve`).
 
 `one_iter_ref` is the plain PyTorch iteration; `admm_chunk` launches the
 kernel for CUDA tensors and runs `one_iter_ref` only for CPU tensors. The
@@ -83,6 +85,9 @@ class ScaledSAA(NamedTuple):
     sm_denom: torch.Tensor  # () Sherman-Morrison denominator
     sigma: torch.Tensor  # ()
     alpha_relax: torch.Tensor  # ()
+    # () 1 where some y meets the CVaR row alone, else 0; kept on the host
+    # (it picks the kernel's instantiation, read without a device sync)
+    sm_free: torch.Tensor
 
 
 class ScaledState(NamedTuple):
@@ -200,6 +205,18 @@ def scaled_structure(
     N_vv[n + 1, n] = N_st
     N_vv[n + 1, n + 1] = N_tt
 
+    # a y that meets the CVaR row alone has Dbar = sigma (Dinv = 1e6): the
+    # car's y rows at its gated iteration, where the y rows of the samples
+    # past n_x - n_fc - 1 and every sample row are zeroed
+    free = bool(torch.any((yd_hat == 0) & torch.all(eGy == 0, dim=1)
+                          & (cy_hat != 0)))
+    if free:
+        # S from the float32 values the iteration applies, so that its KKT
+        # solve is the exact solve of one symmetric system: formed from the
+        # unrounded values, S is inconsistent with them at 1e-7, which the
+        # 1e6 of Dinv carries into a drift of t and the free y
+        Dinv, wD, Cbar = (x.to(f32).to(torch.float64) for x in (Dinv, wD, Cbar))
+        sm_denom = (1.0 + rv_c_h * torch.sum(w_vec * wD)).to(f32).to(torch.float64)
     DinvC = Dinv[:, None] * Cbar
     CtwD = Cbar.T @ wD
     S = N_vv - (Cbar.T @ DinvC - (rv_c_h / sm_denom) * torch.outer(CtwD, CtwD))
@@ -238,6 +255,7 @@ def scaled_structure(
         sm_denom=sm_denom.to(f32),
         sigma=sigma,
         alpha_relax=torch.tensor(cfg.alpha_relax, dtype=f32, device=Gs.device),
+        sm_free=torch.tensor(float(free), dtype=f32),
     )
     return p, (D, E, c_cost)
 
@@ -267,6 +285,48 @@ def _row_update(al, z, yd, zt, rv, lb, ub):
     return z_next, yd_next
 
 
+def kkt_solve(p, y, w_c, w_y, rowsum_y, rhs_v):
+    """The KKT solve of one iteration: (v, y_t) = (u_t | s_t | t_t, y_t)
+    from the y iterate `y`, w of the CVaR row `w_c`, w of the y rows `w_y`,
+    sum_k eGy w per sample `rowsum_y` and the right-hand side of (u, s, t)
+    `rhs_v`. `p` is a ScaledSAA or a ScaledSAAF.
+
+    The y block is Dbar + beta cy cy^T (beta the CVaR row's rho, cy =
+    cy_hat), solved by Sherman-Morrison for r = rhs_y (g_y) and for
+    q = rhs_y - Cbar v (y_t): Dinv r - beta (wD . r) / denom wD, as the JAX
+    kernel forms it. Where some y meets the CVaR row alone (p.sm_free), its
+    Dinv is 1/sigma = 1e6 and that form cancels terms 1e6 times its result:
+    float32 then diverges. There the right-hand sides are written
+    r = sigma y + cy mu - B (mu = w_c and B1 = yd_hat w_y + rowsum_y for
+    g_y; mu = w_c - beta c2, c2 = cs_hat s_t + ct_hat t_t, and B1 + Cbar v -
+    beta cy c2 for y_t), and with a = Dinv sigma, X = sum(cy a y - wD B),
+    Sherman-Morrison is exactly
+        a y - Dinv B + wD (mu - beta X) / denom,
+    which never forms Dinv r. The CUDA kernel takes the same branch."""
+    n = rhs_v.shape[0] - 2
+    beta, denom = p.sm_beta, p.sm_denom
+    if not bool(p.sm_free):
+        rhs_y = p.sigma * y + p.cy_hat * w_c - p.yd_hat * w_y - rowsum_y
+
+        def sm_apply(r):
+            return p.Dinv * r - (beta * torch.sum(p.wD * r) / denom) * p.wD
+
+        g_y = sm_apply(rhs_y)
+        v = (rhs_v - p.Cbar.T @ g_y) @ p.Sinv
+        return v, sm_apply(rhs_y - p.Cbar @ v)
+    a = p.Dinv * p.sigma
+    B1 = p.yd_hat * w_y + rowsum_y
+    X1 = torch.sum(p.cy_hat * a * y - p.wD * B1)
+    g_y = a * y - p.Dinv * B1 + p.wD * ((w_c - beta * X1) / denom)
+    v = (rhs_v - p.Cbar.T @ g_y) @ p.Sinv
+    c2 = p.cs_hat * v[n] + p.ct_hat * v[n + 1]
+    cv = p.Cbar @ v - beta * p.cy_hat * c2
+    X2 = X1 - torch.sum(p.wD * cv)
+    y_t = (a * y - p.Dinv * (B1 + cv)
+           + p.wD * ((w_c - beta * c2 - beta * X2) / denom))
+    return v, y_t
+
+
 def one_iter_ref(p: ScaledSAA, s: ScaledState, d: KernelDims) -> ScaledState:
     """One scaled ADMM iteration in plain PyTorch (the kernel's plain
     version; saa_admm.py:_iter_body)."""
@@ -287,18 +347,11 @@ def one_iter_ref(p: ScaledSAA, s: ScaledState, d: KernelDims) -> ScaledState:
         u_part = u_part + w_small[j] * p.Fs[j]
     u_part = u_part + p.cu * w_small[n_fc + 2 :]
     rhs_u = sig * s.u - p.q_hat_u + u_part
-    rhs_y = sig * s.y + p.cy_hat * w_c - p.yd_hat * w_y - rowsum_y
     rhs_s = (sig * s.s - p.q_hat_s + p.cs_hat * w_c
              - torch.sum(p.ys_hat * w_y) - p.ss_hat * w_s)
     rhs_t = sig * s.t + p.ct_hat * w_c - eGtw_sum
-
-    def sm_apply(r):
-        return p.Dinv * r - (p.sm_beta * torch.sum(p.wD * r) / p.sm_denom) * p.wD
-
-    g_y = sm_apply(rhs_y)
-    r_v = torch.cat([rhs_u, rhs_s[None], rhs_t[None]]) - p.Cbar.T @ g_y
-    v = r_v @ p.Sinv
-    y_t = sm_apply(rhs_y - p.Cbar @ v)
+    v, y_t = kkt_solve(p, s.y, w_c, w_y, rowsum_y,
+                       torch.cat([rhs_u, rhs_s[None], rhs_t[None]]))
     u_t, s_t, t_t = v[:n], v[n], v[n + 1]
 
     # sweep 2: zt of the sample rows + their row update
@@ -354,9 +407,10 @@ def check_tensors(who: str, p, state, d: KernelDims, sample_rows: dict):
     device = p[0].device
     for name, x in list(zip(p._fields, p)) + list(zip(state._fields, state)):
         want = shapes.get(name, ())
-        if x.device != device or x.dtype != torch.float32:
+        on = x.device if name == "sm_free" else device  # a host flag
+        if x.device != on or x.dtype != torch.float32:
             raise ValueError(
-                f"{who}: {name} must be float32 on {device}, got "
+                f"{who}: {name} must be float32 on {on}, got "
                 f"{x.dtype} on {x.device}"
             )
         if tuple(x.shape) != want or not x.is_contiguous():
@@ -440,7 +494,7 @@ def _library():
     use)."""
     from riskaversetrajopt_torch.ops.cuda import build
 
-    lib = declare(build.load("saa_admm"), "saa_admm", 5, 4)
+    lib = declare(build.load("saa_admm"), "saa_admm", 6, 4)
     lib.saa_admm_sync_floor.argtypes = [ctypes.c_int, ctypes.c_int,
                                         ctypes.c_void_p]
     lib.saa_admm_sync_floor.restype = ctypes.c_int
@@ -463,11 +517,12 @@ def _kernel_chunk(p: ScaledSAA, state: ScaledState, d: KernelDims,
     with torch.cuda.device(dev):
         out = ScaledState(*(torch.empty_like(x) for x in state))
         scratch = kernel_scratch(launch_shape(d, dev), d, dev)
-        tensors = list(p) + list(state) + list(out) + scratch
+        # every field but sm_free (the last), which picks the kernel
+        tensors = list(p[:-1]) + list(state) + list(out) + scratch
         ptrs = (ctypes.c_void_p * len(tensors))(*(x.data_ptr() for x in tensors))
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.saa_admm_chunk(ptrs, len(tensors), d.M, d.K, d.n, d.n_fc,
-                                 chunk, stream)
+                                 chunk, int(bool(p.sm_free)), stream)
         if err != 0:
             raise cuda_error(lib, "saa_admm", err)
         admm_chunk.launches += 1

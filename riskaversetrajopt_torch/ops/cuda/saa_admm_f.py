@@ -50,6 +50,7 @@ from riskaversetrajopt_torch.ops.cuda.saa_admm import (
     cuda_error,
     declare,
     kernel_scratch,
+    kkt_solve,
     query_shape,
     solve_chunked,
 )
@@ -98,6 +99,7 @@ class ScaledSAAF(NamedTuple):
     sm_denom: torch.Tensor  # ()
     sigma: torch.Tensor  # ()
     alpha_relax: torch.Tensor  # ()
+    sm_free: torch.Tensor  # () on the host, as ScaledSAA's
 
 
 class ScaledStateF(NamedTuple):
@@ -195,18 +197,11 @@ def step_ref_f(pf: ScaledSAAF, s: ScaledStateF, d: KernelDims,
         u_part = u_part + w_small[j] * pf.Fs[j]
     u_part = u_part + pf.cu * w_small[n_fc + 2 :]
     rhs_u = sig * s.u - pf.q_hat_u + u_part
-    rhs_y = sig * s.y + pf.cy_hat * w_c - pf.yd_hat * w_y - rowsum_y
     rhs_s = (sig * s.s - pf.q_hat_s + pf.cs_hat * w_c
              - torch.sum(pf.ys_hat * w_y) - pf.ss_hat * w_s)
     rhs_t = sig * s.t + pf.ct_hat * w_c - eGtw_sum
-
-    def sm_apply(r):
-        return pf.Dinv * r - (pf.sm_beta * torch.sum(pf.wD * r) / pf.sm_denom) * pf.wD
-
-    g_y = sm_apply(rhs_y)
-    r_v = torch.cat([rhs_u, rhs_s[None], rhs_t[None]]) - pf.Cbar.T @ g_y
-    v = r_v @ pf.Sinv
-    y_t = sm_apply(rhs_y - pf.Cbar @ v)
+    v, y_t = kkt_solve(pf, s.y, w_c, w_y, rowsum_y,
+                       torch.cat([rhs_u, rhs_s[None], rhs_t[None]]))
     u_t, s_t, t_t = v[:n], v[n], v[n + 1]
 
     # sweep 2 + sample-row update
@@ -253,7 +248,7 @@ def _library():
     use)."""
     from riskaversetrajopt_torch.ops.cuda import build
 
-    return declare(build.load("saa_admm_f"), "saa_admm_f", 6, 5)
+    return declare(build.load("saa_admm_f"), "saa_admm_f", 7, 5)
 
 
 def launch_shape_f(d: KernelDims, device,
@@ -281,12 +276,14 @@ def _kernel_chunk(pf: ScaledSAAF, state: ScaledStateF, d: KernelDims,
         out = ScaledStateF(*(torch.empty_like(x) for x in state))
         shape = launch_shape_f(d, dev, sweep_precision)
         scratch = kernel_scratch(shape, d, dev)
-        tensors = list(pf) + list(state) + list(out) + scratch
+        # every field but sm_free (the last), which picks the kernel
+        tensors = list(pf[:-1]) + list(state) + list(out) + scratch
         ptrs = (ctypes.c_void_p * len(tensors))(*(x.data_ptr() for x in tensors))
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.saa_admm_f_chunk(
             ptrs, len(tensors), d.M, d.K, d.n, d.n_fc, chunk,
-            SWEEP_PRECISIONS.index(sweep_precision), stream,
+            SWEEP_PRECISIONS.index(sweep_precision), int(bool(pf.sm_free)),
+            stream,
         )
         if err != 0:
             raise cuda_error(lib, "saa_admm_f", err)

@@ -10,12 +10,19 @@ Backends: 'admm' (the structured ADMM of ops/admm.py), '_admm-pallas'
 lane-flat fused-kernel ADMM of ops/cuda/saa_admm_f.py); the two fused
 backends are float32 only. The JAX package's other backends are not ported
 yet and raise.
+
+Entry points: `solve` (with mid-solve checkpoint and resume), `solve_many`
+(independent instances one after another) and `solve_instrumented` (the
+reference's define/solve timing harness).
 """
 
 from __future__ import annotations
 
+import contextlib
+import time
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from riskaversetrajopt_torch.core.config import SCPConfig, SolverConfig
@@ -27,6 +34,8 @@ from riskaversetrajopt_torch.ops.saa_qp import (
     pack_saa_qp_data,
     solve_saa_qp,
 )
+from riskaversetrajopt_torch.utils import checkpoint as ckpt
+from riskaversetrajopt_torch.utils.profiling import annotate
 
 _BACKENDS = ("admm", "_admm-pallas", "_admm-pallas-f")
 _FUSED = ("_admm-pallas", "_admm-pallas-f")
@@ -175,48 +184,185 @@ class SAATrajOpt:
                             rho0=rho0, eps_scale=eps_scale)
 
     # -- full SCP solve ----------------------------------------------------
-    def solve(self, omegas, alpha, M: Optional[int] = None) -> SCPResult:
+    def solve(
+        self,
+        omegas,
+        alpha,
+        M: Optional[int] = None,
+        checkpoint_path: Optional[str] = None,
+        checkpoint_every: int = 1,
+    ) -> SCPResult:
         """Run the full SCP loop (fixed iteration count, reference semantics:
         convergence is monitored but not used for termination,
-        car/driving.py:500-513)."""
+        car/driving.py:500-513).
+
+        `checkpoint_path` enables mid-solve checkpoint and resume
+        (driver.py:426-477): every `checkpoint_every`-th SCP iteration, and
+        the last, snapshots (iteration, us, ADMM warm starts, adapted rho)
+        to the file, and a call with an existing file resumes at the
+        recorded iteration from the saved iterate. The resumed result's
+        per-iteration arrays (l2_errors, qp_iters, ...) cover only the
+        remaining iterations."""
         if M is None:
             M = omegas[0].shape[0]
-        return self._solve_core(omegas, alpha, M)
+        if checkpoint_path is None:
+            return self._solve_core(omegas, alpha, M)
+        start_iter, resume = self._load_checkpoint(checkpoint_path)
+        return self._solve_core(
+            omegas, alpha, M, start_iter=start_iter,
+            ckpt=(checkpoint_path, int(checkpoint_every)), resume=resume,
+        )
 
-    def _solve_core(self, omegas, alpha, M: int) -> SCPResult:
+    def _load_checkpoint(self, path):
+        """(iteration to resume at, (us, warm)) from a snapshot file, or
+        (0, None) when there is none; the saved arrays are cast to the
+        driver's dtype and device."""
+        saved = ckpt.load(path)
+        if saved is None:
+            return 0, None
         kw = dict(dtype=self.dtype, device=self.device)
-        omegas = type(omegas)(*(torch.as_tensor(x).to(**kw) for x in omegas))
-        alpha = torch.as_tensor(alpha, **kw)
-        st = self._static_for(M)
-        n = st.n
-        us_prev = self.model.initial_guess()
-        warm = (
-            torch.zeros(n + M + 2, **kw),
+        rho = self.admm_cfg.rho if saved.warm_rho is None else saved.warm_rho
+        return saved.scp_iter, (
+            torch.as_tensor(saved.us).to(**kw),
+            (torch.as_tensor(saved.warm_x).to(**kw),
+             torch.as_tensor(saved.warm_y).to(**kw),
+             torch.tensor(rho, **kw)),
+        )
+
+    def _save_checkpoint(self, path, scp_iter: int, us, warm):
+        host = lambda t: t.detach().cpu().numpy()  # noqa: E731
+        ckpt.save(path, scp_iter, host(us), host(warm[0]), host(warm[1]),
+                  warm_rho=host(warm[2]))
+
+    def _cold_warm(self, st: SAAQPStatic):
+        kw = dict(dtype=self.dtype, device=self.device)
+        return (
+            torch.zeros(st.n + st.M + 2, **kw),
             torch.zeros(st_total_rows(st), **kw),
             torch.tensor(self.admm_cfg.rho, **kw),
         )
-        l2s, t_risks, qp_iters, qp_solved, us_hist = [], [], [], [], []
-        for scp_iter in range(self.scp_cfg.num_iters):
-            data = self._define(us_prev, omegas, alpha)
-            sol = self._solve_qp(st, data, scp_iter, warm)
+
+    def _cast_omegas(self, omegas):
+        kw = dict(dtype=self.dtype, device=self.device)
+        return type(omegas)(*(torch.as_tensor(x).to(**kw) for x in omegas))
+
+    # -- many independent instances -----------------------------------------
+    def solve_many(self, omegas, alphas, M: Optional[int] = None) -> SCPResult:
+        """Solve B independent problem instances one after another, each at
+        its own convergence schedule (driver.py:480-511, the reference's
+        alpha x repeat sweep axis, drone_risk.py:498-503). `omegas` fields
+        carry a leading (B, ...) axis and `alphas` is (B,). Returns an
+        SCPResult with a leading (B, ...) axis on every field, each instance
+        bit for bit its own `solve`."""
+        if M is None:
+            M = omegas[0].shape[1]
+        alphas = torch.as_tensor(alphas, dtype=self.dtype).tolist()
+        results = [
+            self._solve_core(type(omegas)(*(x[i] for x in omegas)), a, M)
+            for i, a in enumerate(alphas)
+        ]
+        return SCPResult(*(torch.stack(f) for f in zip(*results)))
+
+    def _solve_core(self, omegas, alpha, M: int, start_iter: int = 0,
+                    ckpt=None, resume=None, phase=None) -> SCPResult:
+        """The SCP loop. `phase(name)`, where given, is a context manager
+        around each iteration's "define" and "solve" (solve_instrumented's
+        timer)."""
+        phase = phase or (lambda name: contextlib.nullcontext())
+        omegas = self._cast_omegas(omegas)
+        alpha = torch.as_tensor(alpha, dtype=self.dtype, device=self.device)
+        st = self._static_for(M)
+        n = st.n
+        us_prev = self.model.initial_guess()
+        warm = self._cold_warm(st)
+        if resume is not None:
+            us_prev, warm = resume
+        t_risk = warm[0][-1]
+        l2s, qp_iters, qp_solved, us_hist = [], [], [], []
+        for scp_iter in range(start_iter, self.scp_cfg.num_iters):
+            with phase("define"):
+                data = self._define(us_prev, omegas, alpha)
+            with phase("solve"):
+                sol = self._solve_qp(st, data, scp_iter, warm)
             us = sol.x[:n].reshape(self.model.S, self.model.n_u).to(self.dtype)
             l2s.append(l2_error_us(us, us_prev))
-            t_risks.append(sol.x[-1])
+            t_risk = sol.x[-1]
             qp_iters.append(sol.iters)
             qp_solved.append(sol.solved)
             us_hist.append(us)
+            # every ported backend adapts rho and carries it on (the ADMM
+            # family of driver.py:698)
             warm = (sol.x, sol.y, sol.rho.to(self.dtype))
             us_prev = us
+            if ckpt is not None:
+                path, every = ckpt
+                done = scp_iter + 1
+                if done % every == 0 or done == self.scp_cfg.num_iters:
+                    self._save_checkpoint(path, done, us, warm)
         xs = rollout_batch(self.model, us_prev, omegas)
+        kw = dict(dtype=self.dtype, device=self.device)
         return SCPResult(
             us=us_prev,
             xs=xs,
-            t_risk=t_risks[-1],
-            l2_errors=torch.stack(l2s),
-            qp_iters=torch.tensor(qp_iters),
-            qp_solved=torch.tensor(qp_solved),
-            us_history=torch.stack(us_hist),
+            t_risk=t_risk,
+            l2_errors=torch.stack(l2s) if l2s else torch.zeros(0, **kw),
+            qp_iters=torch.tensor(qp_iters, dtype=torch.int64),
+            qp_solved=torch.tensor(qp_solved, dtype=torch.bool),
+            us_history=(torch.stack(us_hist) if us_hist else
+                        torch.zeros(0, self.model.S, self.model.n_u, **kw)),
         )
+
+    # -- instrumented solve: define/solve timing split ----------------------
+    def solve_instrumented(self, omegas, alpha, M: Optional[int] = None,
+                           checkpoint_path: Optional[str] = None):
+        """SCP loop with the define and solve phases timed apart, the
+        reference's timing harness (car/driving.py:482-513, driver.py:612-719):
+        per SCP iteration a define time and a solve time, each closed by a
+        device synchronize on the card, the cumulative time and the L2
+        error. One warm-up define and solve run first (car/driving.py:
+        474-480; here they build the kernel library). The phases are marked
+        `define` and `solve` for utils.profiling.trace. With
+        `checkpoint_path` it resumes from an existing snapshot and saves one
+        after every iteration. The loop is `solve`'s (_solve_core)."""
+        if M is None:
+            M = omegas[0].shape[0]
+        sync = (torch.cuda.synchronize if self.device.type == "cuda"
+                else lambda device: None)
+        # warm-up pass (reference: car/driving.py:474-480)
+        st = self._static_for(M)
+        us0 = self.model.initial_guess()
+        om = self._cast_omegas(omegas)
+        a = torch.as_tensor(alpha, dtype=self.dtype, device=self.device)
+        self._define(us0, om, a)
+        sync(self.device)
+        self._solve_qp(st, self._define(us0, om, a), 0, self._cold_warm(st))
+        sync(self.device)
+
+        times = {"define": [], "solve": []}
+
+        @contextlib.contextmanager
+        def phase(name):
+            t0 = time.perf_counter()
+            with annotate(name):
+                yield
+                sync(self.device)
+            times[name].append(time.perf_counter() - t0)
+
+        start_iter, resume, ckpt = 0, None, None
+        if checkpoint_path is not None:
+            start_iter, resume = self._load_checkpoint(checkpoint_path)
+            ckpt = (checkpoint_path, 1)
+        res = self._solve_core(omegas, alpha, M, start_iter, ckpt, resume, phase)
+        define_times = np.array(times["define"])
+        solve_times = np.array(times["solve"])
+        return {
+            "us": res.us,
+            "xs": res.xs,
+            "define_times": define_times,
+            "solve_times": solve_times,
+            "cum_times": np.cumsum(define_times + solve_times),
+            "l2_errors": res.l2_errors.double().cpu().numpy(),
+        }
 
     # -- Monte-Carlo validation oracle -------------------------------------
     def monte_carlo(self, us, omegas, alpha, tol: Optional[float] = None):
@@ -225,10 +371,9 @@ class SAATrajOpt:
         AVaR of the max-constraint statistic and the control cost. The
         default tol is OSQP_TOL, as car/driving.py:636 and
         drone/drone_risk.py:660 feed `max(g) - OSQP_TOL` to both tests."""
-        kw = dict(dtype=self.dtype, device=self.device)
         model = self.model
-        us = torch.as_tensor(us).to(**kw)
-        omegas = type(omegas)(*(torch.as_tensor(x).to(**kw) for x in omegas))
+        us = torch.as_tensor(us).to(dtype=self.dtype, device=self.device)
+        omegas = self._cast_omegas(omegas)
         tol = model.scn.osqp_tol if tol is None else tol
         xs = rollout_batch(model, us, omegas)
         max_cons = torch.amax(model.ineq_constraints(xs, omegas), dim=-1) - tol

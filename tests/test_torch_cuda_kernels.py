@@ -13,10 +13,12 @@ import pytest
 import torch
 
 from riskaversetrajopt_torch.core.config import (
+    CarScenario,
     DroneScenario,
     SCPConfig,
     SolverConfig,
 )
+from riskaversetrajopt_torch.models.car import CarModel
 from riskaversetrajopt_torch.models.drone import DroneModel, DroneOmega
 from riskaversetrajopt_torch.ops import admm
 from riskaversetrajopt_torch.ops.cuda import kernel_checks as kc
@@ -40,13 +42,19 @@ def _cuda():
     return torch.device("cuda")
 
 
-def _scaled_problem(dev, M=50, scp_iter=3, sampled=False):
+def _scaled_problem(dev, M=50, scp_iter=3, sampled=False, car=False):
     """The float32 scaled structure of a real define phase at the initial
     guess, on `dev`: the first M fixture omegas, or (`sampled`) M omegas of
-    the port's own DroneModel.sample from a seeded generator."""
-    opt = SAATrajOpt(DroneModel(DroneScenario(M=M), device=dev),
-                     scp_cfg=SCPConfig(num_iters=1), device=dev)
-    if sampled:
+    the port's own DroneModel.sample from a seeded generator; with `car`,
+    the car's (its own SCP config: scp_iter 0 gated) on M omegas of
+    CarModel.sample, seed 0."""
+    if car:
+        model = CarModel(CarScenario(M=M), device=dev)
+        opt = SAATrajOpt(model, device=dev)
+    else:
+        opt = SAATrajOpt(DroneModel(DroneScenario(M=M), device=dev),
+                         scp_cfg=SCPConfig(num_iters=1), device=dev)
+    if sampled or car:
         om = opt.sample(torch.Generator().manual_seed(0), M)
     else:
         with np.load(FIXTURE) as f:
@@ -230,3 +238,51 @@ def test_kernel_matches_plain_beyond_one_block_per_sample(kernel, M):
     for name, a, b, c in zip(ref._fields, out, ref, again):
         assert torch.equal(a, c), name
         assert _rel_err(a, b) <= 2e-2, (name, _rel_err(a, b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scp_iter", [0, 3])
+@pytest.mark.parametrize("kernel", ["b1", "highest", "high", "default"])
+def test_kernel_matches_plain_on_the_car(kernel, scp_iter):
+    """Kernel B1, and B2 at each sweep precision, against their plain
+    versions on the car's scaled structure at M=50 (K=20, n=40, n_fc=4; one
+    sample per block): at scp_iter 0, gated (zeroed sample rows bounded
+    (-inf, 0), the CVaR row live with l = -inf, 3 y rows live), and at 3.
+    20 iterations to chip_smoke.py's 2e-2 ("default" per iteration from the
+    kernel's state, kernel_checks.step_err_f), and s, t and y each to
+    kernel_checks.EPIGRAPH_TOL of its own scale (the fields the free-row KKT
+    form computes; "default" runs the same code); two runs from one state
+    agree bit for bit; each call counts one launch."""
+    dev = _cuda()
+    p, d = _scaled_problem(dev, M=50, scp_iter=scp_iter, car=True)
+    s0 = tk.init_scaled_state(p)
+    if kernel == "b1":
+        run = lambda s: tk.admm_chunk(p, s, d, 20)  # noqa: E731
+        plain = lambda s: tk.one_iter_ref(p, s, d)  # noqa: E731
+        counter = tk.admm_chunk
+    else:
+        p, s0 = tkf.to_f(p, d), tkf.state_to_f(s0, d)
+        run = lambda s: tkf.admm_chunk_f(p, s, d, 20, kernel)  # noqa: E731
+        plain = lambda s: tkf.one_iter_ref_f(p, s, d, kernel)  # noqa: E731
+        counter = tkf.admm_chunk_f
+    before = counter.launches
+    out, again = run(s0), run(s0)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 2
+    for name, a, c in zip(out._fields, out, again):
+        assert torch.equal(a, c), name
+    if kernel == "default":
+        s = s0
+        for it in range(20):
+            step = tkf.admm_step_f(p, s, d, kernel)
+            err, _ = kc.step_err_f(p, s, step, d, kernel)
+            assert err <= 2e-2, (it, err)
+            s = step.state
+        return
+    ref = s0
+    for _ in range(20):
+        ref = plain(ref)
+    err, _ = kc.state_err(out, ref)
+    assert err <= 2e-2, err
+    err = kc.epigraph_err(out, ref)
+    assert err <= kc.EPIGRAPH_TOL, err

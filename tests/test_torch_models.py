@@ -18,7 +18,8 @@ from riskaversetrajopt_tpu.models.drone import DroneModel
 M = 50
 
 
-@pytest.mark.parametrize("name", ["DroneScenario", "SCPConfig", "SolverConfig"])
+@pytest.mark.parametrize(
+    "name", ["DroneScenario", "CarScenario", "SCPConfig", "SolverConfig"])
 def test_config_fields_and_defaults_match(name):
     """Field names, order and defaults equal the JAX dataclasses exactly."""
     j = [(f.name, f.default) for f in dataclasses.fields(getattr(jconfig, name))]

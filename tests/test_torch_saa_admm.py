@@ -132,9 +132,16 @@ def _three_phase_chunk(p, s, d, chunk, blocks):
     reduced once from per-block parts; v = r_v Sinv; the small rows but the
     CVaR row; each block sums wD q, q = r_y - Cbar v. Phase 3 reduces those
     sums to coef2 and updates each block's rows from y_t. The last CVaR row
-    is completed at chunk end."""
+    is completed at chunk end. With p.sm_free the same columns carry the
+    cancellation-free form of kkt_solve: r_y is B1 = yd_hat w_y + sum_k eGy
+    w, the partial row has X1 = sum (cy_hat a y - wD B1) and
+    Cbar^T (a y - Dinv B1) (a = Dinv sigma), the blocks sum wD cv with
+    cv = Cbar v - beta cy_hat (cs_hat s_t + ct_hat t_t), and y_t =
+    a y - Dinv (B1 + cv) + wD kappa2."""
     n, n_fc = d.n, d.n_fc
     al, sig, beta, denom = p.alpha_relax, p.sigma, p.sm_beta, p.sm_denom
+    free = bool(p.sm_free)
+    a = p.Dinv * sig
     ctwd = sum(p.Cbar[b].T @ p.wD[b] for b in blocks)
     u, s_, t, y, z_y, yd_y, z_G, yd_G, z_small, yd_small = (x.clone() for x in s)
     cvar = slice(n_fc, n_fc + 1)
@@ -154,18 +161,26 @@ def _three_phase_chunk(p, s, d, chunk, blocks):
         for b in blocks:
             w = p.rv_G[b] * z_G[b] - yd_G[b]
             w_y = p.rv_y[b] * z_y[b] - yd_y[b]
-            r_y[b] = (sig * y[b] + p.cy_hat[b] * w_c - p.yd_hat[b] * w_y
-                      - torch.sum(p.eGy[b] * w, dim=1))
+            if free:
+                r_y[b] = p.yd_hat[b] * w_y + torch.sum(p.eGy[b] * w, dim=1)
+                x1 = torch.sum(p.cy_hat[b] * a[b] * y[b] - p.wD[b] * r_y[b])
+                cd = p.Cbar[b].T @ (a[b] * y[b] - p.Dinv[b] * r_y[b])
+            else:
+                r_y[b] = (sig * y[b] + p.cy_hat[b] * w_c - p.yd_hat[b] * w_y
+                          - torch.sum(p.eGy[b] * w, dim=1))
+                x1 = torch.sum(p.wD[b] * r_y[b])
+                cd = p.Cbar[b].T @ (p.Dinv[b] * r_y[b])
             rows.append(torch.cat([
                 w.reshape(-1) @ p.Gs[b].reshape(-1, n),
                 torch.sum(p.ys_hat[b] * w_y)[None],
                 torch.sum(p.eGt[b] * w)[None],
-                torch.sum(p.wD[b] * r_y[b])[None],
-                p.Cbar[b].T @ (p.Dinv[b] * r_y[b]),
+                x1[None],
+                cd,
             ]))
         # phase 2: reduced partials, r_v -> v, the small rows, sum wD q
         pr = sum(rows)
-        coef = beta * pr[n + 2] / denom
+        coef = (-(w_c - beta * pr[n + 2]) / denom if free
+                else beta * pr[n + 2] / denom)
         rhs = torch.cat([
             sig * u - p.q_hat_u + pr[:n] + w_small[:n_fc] @ p.Fs
             + p.cu * w_small[n_fc + 2:],
@@ -175,8 +190,14 @@ def _three_phase_chunk(p, s, d, chunk, blocks):
         ])
         v = (rhs - (pr[n + 3:] - coef * ctwd)) @ p.Sinv
         u_t, s_t, t_t = v[:n], v[n], v[n + 1]
-        q = r_y - p.Cbar @ v
-        wq = sum(torch.sum(p.wD[b] * q[b]) for b in blocks)
+        c2 = p.cs_hat * s_t + p.ct_hat * t_t
+        if free:
+            cv = p.Cbar @ v - beta * p.cy_hat * c2
+            q = r_y + cv
+            wq = sum(torch.sum(p.wD[b] * cv[b]) for b in blocks)
+        else:
+            q = r_y - p.Cbar @ v
+            wq = sum(torch.sum(p.wD[b] * q[b]) for b in blocks)
         zt_small = tk._small(p.Fs @ u_t, z_small[n_fc], -p.ss_hat * s_t,
                              p.cu * u_t)
         keep = z_small[cvar].clone(), yd_small[cvar].clone()
@@ -187,10 +208,16 @@ def _three_phase_chunk(p, s, d, chunk, blocks):
         s_ = al * s_t + (1 - al) * s_
         t = al * t_t + (1 - al) * t
         # phase 3: coef2, then each block's rows and its sum cy_hat y_t
-        coef2 = beta * wq / denom
+        if free:
+            coef2 = -(w_c - beta * c2 - beta * (pr[n + 2] - wq)) / denom
+        else:
+            coef2 = beta * wq / denom
         cy_parts = []
         for b in blocks:
-            y_t = p.Dinv[b] * q[b] - coef2 * p.wD[b]
+            if free:
+                y_t = a[b] * y[b] - p.Dinv[b] * q[b] - coef2 * p.wD[b]
+            else:
+                y_t = p.Dinv[b] * q[b] - coef2 * p.wD[b]
             cy_parts.append(torch.sum(p.cy_hat[b] * y_t))
             z_y[b], yd_y[b] = tk._row_update(
                 al, z_y[b], yd_y[b], -p.yd_hat[b] * y_t - p.ys_hat[b] * s_t,
