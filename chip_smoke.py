@@ -32,7 +32,7 @@ Phases, in order (each prints its seconds; any failure exits non-zero):
      (three precisions) against their plain versions on its scaled
      structure at scp_iter 0 (gated, the cancellation-free KKT form) and 3,
      timed; the car SCP (15 iterations) through f64 'admm', f32
-     '_admm-pallas' and f32 '_admm-pallas-f', each held to
+     '_admm-pallas', f32 '_admm-pallas-f' and f32 'admm', each held to
      tests/test_scp_car.py's contract (the final L2 only for f64), with MC
      on 10000 fresh samples. Each kernel's count is set to 0 just before
      its car solve and read just after: the "launches" of the kernels line.
@@ -40,9 +40,18 @@ Phases, in order (each prints its seconds; any failure exits non-zero):
      '_admm-pallas' (define/solve split, MC check); at M=50 a checkpoint at
      iteration 4 resumed to 15 against the uninterrupted run, and
      solve_many over 2 instances against per-instance solve; the
-     drone_risk and driving CLIs (M=50, 2 repeats, 15 SCP iterations) into
+     drone_risk and driving CLIs (M=50, 1 repeat, 15 SCP iterations) into
      a temporary directory: the reference file layout, median final
      L2 < 1e-2, SAA safer than the baseline.
+  9. the interior-point family, which reaches neither kernel (both counts
+     held to 0 around each solve): the IPM on phase 1's M=1000 QP in
+     float64 (certified, its KKT residuals, its objective against f64
+     'admm''s at eps 1e-6 warm-started at its point) and float32; avar_qp
+     against avar on the golden's 10000 MC constraint values; the drone
+     SCP at M=1000 through f64 'ipm', f32 'hybrid' and f32 'admm-ir' (the
+     JAX bench's parity config) with MC beside the golden's, 'hybrid' and
+     'admm-ir' held to MC safe >= 1 - alpha; '_hybrid-prox' at M=50, its
+     QPs certified reported.
 Then one JSON line describing each kernel (with its launches on every path
 above), the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}.
@@ -715,10 +724,12 @@ def car_checks(model, res, omegas, alpha):
 
 def phase7_scp(torch, dev):
     """The car SCP through float64 'admm' (the driver's default solver
-    config) and the float32 '_admm-pallas' and '_admm-pallas-f' (phase 3's
-    solver config), each held to car_checks, f64 'admm' also to final
-    L2 < 2e-2; Monte Carlo on 10000 fresh samples for each beside f64
-    'admm''s on the same samples. Returns each fused kernel's launches."""
+    config) and the float32 '_admm-pallas', '_admm-pallas-f' and 'admm'
+    (phase 3's solver config; float32 'admm' runs the Sherman-Morrison
+    repair of the car's gated QP, SAAQPOps.free_y), each held to
+    car_checks, f64 'admm' also to final L2 < 2e-2; Monte Carlo on 10000
+    fresh samples for each beside f64 'admm''s on the same samples. Returns
+    each fused kernel's launches."""
     from riskaversetrajopt_torch.ops.cuda import saa_admm as sk
     from riskaversetrajopt_torch.ops.cuda import saa_admm_f as fk
 
@@ -726,11 +737,13 @@ def phase7_scp(torch, dev):
     om = opt64.sample(torch.Generator().manual_seed(0), CAR_M)
     mc_om = opt64.sample(torch.Generator().manual_seed(99), 10000)
     launches = {}
-    for backend, counter in (("admm", None), ("_admm-pallas", sk.admm_chunk),
-                             ("_admm-pallas-f", fk.admm_chunk_f)):
-        opt = opt64 if counter is None else car_opt(
-            torch, qp_backend=backend, admm_cfg=fused_config(),
-            dtype=torch.float32)
+    runs = (("admm", None, torch.float64), ("_admm-pallas", sk.admm_chunk,
+                                            torch.float32),
+            ("_admm-pallas-f", fk.admm_chunk_f, torch.float32),
+            ("admm", None, torch.float32))
+    for backend, counter, dtype in runs:
+        opt = opt64 if dtype == torch.float64 else car_opt(
+            torch, qp_backend=backend, admm_cfg=fused_config(), dtype=dtype)
         sk.admm_chunk.launches = fk.admm_chunk_f.launches = 0
         t0 = time.perf_counter()
         res = opt.solve(om, alpha=CAR_ALPHA)
@@ -740,17 +753,17 @@ def phase7_scp(torch, dev):
         final, risk, umax = car_checks(opt.model, res,
                                        opt._cast_omegas(om), CAR_ALPHA)
         l2 = float(res.l2_errors[-1])
-        if counter is None and not l2 < 2e-2:
+        if dtype == torch.float64 and not l2 < 2e-2:
             raise AssertionError(f"car f64 'admm' final L2 {l2:.3e}")
         if counter is not None:
             launches[backend] = counter.launches
             if counter.launches == 0:
                 raise AssertionError(f"car {backend!r} did not launch its kernel")
         elif any(counts):
-            raise AssertionError("car f64 'admm' launched a fused kernel")
+            raise AssertionError("car 'admm' launched a fused kernel")
         mc = opt64.monte_carlo(res.us.to(torch.float64), mc_om, CAR_ALPHA)
         iters = res.qp_iters.tolist()
-        log(f"car {'f64' if counter is None else 'f32'} {backend}: {wall:.2f} s, "
+        log(f"car {'f64' if dtype == torch.float64 else 'f32'} {backend}: {wall:.2f} s, "
             f"kernel calls B1 {counts[0]} B2 {counts[1]}, {sum(iters)} ADMM "
             f"iterations, qp_iters {iters}, QPs certified "
             f"{int(res.qp_solved.sum())} of {len(iters)}, final L2 {l2:.3e}, "
@@ -885,7 +898,7 @@ def run_cli(main, argv, dev):
 
 def phase8_clis(torch, dev):
     """drone_risk.main and driving.main into a temporary directory at M=50
-    (their default), with --repeats 2 and 15 SCP iterations (alphas 0.2
+    (their default), with --repeats 1 and 15 SCP iterations (alphas 0.2
     and 0.1): the reference file layout, median final L2 < 1e-2, and the
     drone SAA safe(mean) above the baseline's safe fraction."""
     import tempfile
@@ -901,11 +914,10 @@ def drone_cli(dev, rdir):
     from riskaversetrajopt_torch.experiments import common, drone_risk
 
     out, wall = run_cli(drone_risk.main, [
-        "--repeats", "2", "--alphas", "0.2", "--scp-iters", str(SCP_ITERS),
+        "--repeats", "1", "--alphas", "0.2", "--scp-iters", str(SCP_ITERS),
         "--results", rdir], dev)
     files = sorted(p.name for p in Path(rdir).iterdir())
-    want = ["drone_alpha=0.2_repeat=0.npy", "drone_alpha=0.2_repeat=1.npy",
-            "drone_baseline.npy"]
+    want = ["drone_alpha=0.2_repeat=0.npy", "drone_baseline.npy"]
     l2 = float(re.search(r"final L2 \(median over sweep\): (\S+)", out)[1])
     saa = float(re.search(r"alpha=0.2: safe\(mean\)=(\S+)", out)[1])
     base = float(re.search(r"baseline: safe=(\S+)", out)[1])
@@ -929,10 +941,10 @@ def car_cli(dev, rdir):
     from riskaversetrajopt_torch.experiments import common, driving
 
     out, wall = run_cli(driving.main, [
-        "--repeats", "2", "--alphas", str(CAR_ALPHA), "--scp-iters",
+        "--repeats", "1", "--alphas", str(CAR_ALPHA), "--scp-iters",
         str(SCP_ITERS), "--results", rdir], dev)
     files = sorted(p.name for p in Path(rdir).iterdir())
-    want = ["driving_alpha=0.1_repeat=0.npy", "driving_alpha=0.1_repeat=1.npy",
+    want = ["driving_alpha=0.1_repeat=0.npy",
             "driving_baseline.npy", "driving_computation_times.npy"]
     alphas, d_t, s_t, c_t, l2s = common.load_timing(
         f"{rdir}/driving_computation_times.npy")
@@ -942,10 +954,252 @@ def car_cli(dev, rdir):
         f"{' / '.join(stages)} s), files {files}, median final L2 {l2:.3e}, "
         f"define/solve ms per SCP iteration (median) "
         f"{np.median(d_t) * 1e3:.2f} / {np.median(s_t) * 1e3:.2f}")
-    if files != want or not l2 < 1e-2 or d_t.shape != (2, 1, SCP_ITERS):
+    if files != want or not l2 < 1e-2 or d_t.shape != (1, 1, SCP_ITERS):
         raise AssertionError("driving CLI: wrong files, L2 or timing shape")
     if "run the driving_gaussian experiment first" not in out:
         raise AssertionError("driving CLI: no Gaussian-baseline message")
+
+
+def parity_config():
+    """'admm-ir''s solver and refinement config in phase 9: the JAX bench's
+    parity mode (bench.py:747-761): eps_abs 1e-4, eps_rel 1e-5, the base
+    solve at that target capped at 20000 iterations, polish off, no rho
+    warm start, the "factored" KKT refinement, the explicit Schur inverse."""
+    from riskaversetrajopt_torch.core.config import SolverConfig
+    from riskaversetrajopt_torch.ops.qp_refine import IRConfig
+
+    return (SolverConfig(eps_abs=1e-4, eps_rel=1e-5, max_iter=20000,
+                         polish=False, rho_warm_start=False,
+                         kkt_refine_mode="factored", kkt_chol_inverse=True),
+            IRConfig(base_eps_abs=1e-4, base_eps_rel=1e-5,
+                     base_max_iter=20000))
+
+
+def drone_opt(torch, dev, m, scp_cfg, **kw):
+    from riskaversetrajopt_torch.core.config import DroneScenario
+    from riskaversetrajopt_torch.models.drone import DroneModel
+    from riskaversetrajopt_torch.scp.driver import SAATrajOpt
+
+    return SAATrajOpt(DroneModel(DroneScenario(M=m), device=dev),
+                      scp_cfg=scp_cfg, device=dev, **kw)
+
+
+def first_omegas(torch, dtype, dev, m):
+    """The first m omegas of the committed M=1000 fixture."""
+    om = load_omegas(torch, dtype, dev)
+    return type(om)(*(x[:m] for x in om))
+
+
+def sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def kernel_counters():
+    from riskaversetrajopt_torch.ops.cuda import saa_admm as sk
+    from riskaversetrajopt_torch.ops.cuda import saa_admm_f as fk
+
+    return sk.admm_chunk, fk.admm_chunk_f
+
+
+def no_kernel_run(torch, dev, fn, what):
+    """fn() with both kernels' counts set to 0 just before and read just
+    after: the interior-point family reaches neither kernel, so both must
+    read 0. Returns (fn's result, wall seconds, the two counts)."""
+    counters = kernel_counters()
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    out = fn()
+    sync(torch, dev)
+    wall = time.perf_counter() - t0
+    counts = tuple(c.launches for c in counters)
+    if any(counts):
+        raise AssertionError(f"{what} launched a fused kernel: {counts}")
+    return out, wall, counts
+
+
+def phase9_ipm_qp(torch, dev, opt64, m=M):
+    """(a) The IPM on phase 1's QP (a real define phase at the initial
+    guess, scp_iter 3, the fixture omegas): in float64 at tol 1e-5
+    certified within IPMConfig's cap raised to 100 iterations (it takes 73
+    at M=1000; the JAX package and the port both take 23, 28 and 49 at
+    M=100, 300 and 500 on the CPU), its unscaled KKT residuals held as
+    tests/test_ipm.py:101-135 holds them (primal <= 1e-6, dual / d_scale
+    < 1e-4), and its objective within 1e-4 relative of float64 'admm''s at
+    eps 1e-6 on the same QP (the driver's solver config, warm-started at
+    the IPM point as 'hybrid' does; on this QP it may stop at the 20000
+    cap, from a cold start it did at M=16, so whether it certified is
+    reported); in float32 at IPMConfig(tol=1e-4, max_iter=30)
+    (__graft_entry__.py:37) reported."""
+    from riskaversetrajopt_torch.core.config import SolverConfig
+    from riskaversetrajopt_torch.ops.ipm import IPMConfig, solve_qp_ipm
+    from riskaversetrajopt_torch.ops.saa_qp import (
+        SAAQPOps, build_bounds, build_objective, solve_saa_qp,
+    )
+
+    om = first_omegas(torch, torch.float64, dev, m)
+    alpha = torch.tensor(ALPHA, dtype=torch.float64, device=dev)
+    data64 = opt64._define(opt64.model.initial_guess(), om, alpha)
+    data32 = type(data64)(*(x.to(torch.float32) for x in data64))
+    st = opt64._static_for(m)
+    amax = lambda v: float(torch.max(torch.abs(v)))  # noqa: E731
+    stats, sols = {}, {}
+    for name, data, cfg in (("f64", data64, IPMConfig(tol=1e-5, max_iter=100)),
+                            ("f32", data32, IPMConfig(tol=1e-4, max_iter=30))):
+        ops = SAAQPOps(st, data, 3)
+        p_diag, q = build_objective(st, data)
+        l, u = build_bounds(st, data, 3)
+        sol, wall, _ = no_kernel_run(
+            torch, dev, lambda: solve_qp_ipm(ops, q, l, u, n_eq=st.n_fc,
+                                             cfg=cfg), f"{name} IPM")
+        Ax = ops.matvec_A(sol.x)
+        Aty = ops.rmatvec_A(sol.y)
+        prim = max(float(torch.max(Ax - u)), float(torch.max(l - Ax)), 0.0)
+        dual = amax(p_diag * sol.x + q + Aty)
+        d_scale = max(amax(Aty), amax(q))
+        finite = all(bool(torch.isfinite(v).all()) for v in (sol.x, sol.y))
+        obj = float(0.5 * torch.sum(p_diag * sol.x * sol.x) + q @ sol.x)
+        sols[name] = sol
+        stats[name] = {"iters": sol.iters, "solved": sol.solved,
+                       "ms": wall * 1e3, "prim": prim,
+                       "dual_over_scale": dual / d_scale, "objective": obj}
+        log(f"IPM {name} on the M={m} drone QP (scp_iter 3): {sol.iters} "
+            f"iterations, {wall * 1e3:.1f} ms, solved {sol.solved}, primal "
+            f"violation {prim:.3e}, dual {dual:.3e} (/ d_scale {d_scale:.3e}"
+            f" = {dual / d_scale:.3e}), objective {obj:.10e}, finite {finite}")
+        if not finite:
+            raise AssertionError(f"{name} IPM iterate is not finite")
+    f64 = stats["f64"]
+    if not (f64["solved"] and f64["prim"] <= 1e-6
+            and f64["dual_over_scale"] < 1e-4):
+        raise AssertionError(f"f64 IPM QP checks: {f64}")
+    p_diag, q = build_objective(st, data64)
+    cfg = SolverConfig(eps_abs=1e-6, eps_rel=1e-6, max_iter=20000,
+                       polish=False, kkt_refine_iters=1)
+    sol, wall, _ = no_kernel_run(
+        torch, dev, lambda: solve_saa_qp(st, data64, 3, cfg, x0=sols["f64"].x,
+                                         y0=sols["f64"].y), "f64 admm QP")
+    obj = float(0.5 * torch.sum(p_diag * sol.x * sol.x) + q @ sol.x)
+    rel = abs(f64["objective"] - obj) / abs(obj)
+    stats["admm_f64"] = {"iters": sol.iters, "solved": sol.solved,
+                         "ms": wall * 1e3, "objective": obj,
+                         "ipm_objective_rel_diff": rel}
+    log(f"f64 'admm' on the same QP at eps 1e-6, warm-started at the IPM "
+        f"point: {sol.iters} iterations, {wall * 1e3:.1f} ms, solved "
+        f"{sol.solved}, objective {obj:.10e}; the IPM's objective {rel:.3e} "
+        f"relative from it")
+    if not rel <= 1e-4:
+        raise AssertionError(f"IPM objective {rel:.3e} from 'admm''s")
+    return stats
+
+
+def phase9_avar(torch, dev, opt64, gold, mc_om):
+    """(b) avar_qp (the IPM on AVaRQPOps) against the sort-based avar in
+    float64 on the golden's max-constraint values of phase 3's Monte Carlo
+    (10000 samples, seed 99): atol 1e-4 (tests/test_cvar.py:52-61)."""
+    from riskaversetrajopt_torch.ops.cvar import avar, avar_qp
+
+    Z = opt64.monte_carlo(gold, mc_om, ALPHA)["max_constraints"]
+    v_qp, wall, _ = no_kernel_run(torch, dev, lambda: avar_qp(Z, ALPHA),
+                                  "avar_qp")
+    v_qp, v = float(v_qp), float(avar(Z, ALPHA))
+    log(f"avar_qp over {Z.shape[0]} samples: {v_qp:.10f} in {wall * 1e3:.1f}"
+        f" ms; avar {v:.10f}; |difference| {abs(v_qp - v):.3e}")
+    if not abs(v_qp - v) <= 1e-4:
+        raise AssertionError(f"avar_qp {v_qp} vs avar {v}")
+    return {"avar_qp": v_qp, "avar": v, "ms": wall * 1e3}
+
+
+def phase9_scp(torch, dev, opt64, gold, mc_om, m=M):
+    """(c) Three drone SCPs at M=1000 on the fixture omegas, alpha 0.2,
+    phase 2's SCP config, each with MC on phase 3's 10000 samples beside
+    the golden's: float64 'ipm' (finite iterates; L2 and MC reported only:
+    the JAX driver warns that raw IPM solutions can make the SCP oscillate,
+    driver.py:71-76), float32 'hybrid' (phase 3's solver config, the
+    driver's IPMConfig(tol=1e-5, max_iter=40)) and float32 'admm-ir'
+    (parity_config); the last two with finite iterates and MC safe
+    fraction >= 1 - alpha. Returns the stats of each."""
+    from riskaversetrajopt_torch.scp.driver import l2_error_us
+
+    adm, ir = parity_config()
+    runs = (("ipm", torch.float64, {}),
+            ("hybrid", torch.float32, dict(admm_cfg=fused_config())),
+            ("admm-ir", torch.float32, dict(admm_cfg=adm, ir_cfg=ir)))
+    mc_gold = opt64.monte_carlo(gold, mc_om, ALPHA) if gold is not None else None
+    stats = {}
+    for backend, dtype, kw in runs:
+        opt = drone_opt(torch, dev, m, golden_scp_config(), qp_backend=backend,
+                        dtype=dtype, **kw)
+        om = first_omegas(torch, dtype, dev, m)
+        res, wall, counts = no_kernel_run(torch, dev,
+                                          lambda: opt.solve(om, ALPHA),
+                                          f"{backend!r} SCP")
+        for name in ("us", "xs", "l2_errors", "us_history"):
+            if not bool(torch.isfinite(getattr(res, name)).all()):
+                raise AssertionError(f"{backend!r} {name} is not finite")
+        mc = opt64.monte_carlo(res.us.to(torch.float64), mc_om, ALPHA)
+        iters = res.qp_iters.tolist()
+        st = {"dtype": str(dtype).split(".")[-1], "wall_s": wall,
+              "qp_iters": iters, "qp_iters_total": sum(iters),
+              "qps_certified": int(res.qp_solved.sum()),
+              "mc_safe": float(mc["safe_frac"]),
+              "mc_avar": float(mc["avar"]), "mc_cost": float(mc["cost"]),
+              "kernel_launches": counts}
+        if gold is not None:
+            st["l2_vs_golden"] = float(l2_error_us(gold, res.us.to(gold)))
+            st["golden_mc_safe"] = float(mc_gold["safe_frac"])
+            st["golden_mc_cost"] = float(mc_gold["cost"])
+        stats[backend] = st
+        log(f"{st['dtype']} {backend!r} SCP M={m}: {wall:.2f} s, QP iterations "
+            f"{iters} ({sum(iters)} in all), QPs certified "
+            f"{st['qps_certified']} of {len(iters)}, relative L2 vs golden "
+            f"{st.get('l2_vs_golden', float('nan')):.3e}; MC safe "
+            f"{st['mc_safe']:.4f}, AVaR {st['mc_avar']:.4f}, cost "
+            f"{st['mc_cost']:.4f} (golden: safe "
+            f"{st.get('golden_mc_safe', float('nan')):.4f}, cost "
+            f"{st.get('golden_mc_cost', float('nan')):.4f}); kernel calls "
+            f"B1 {counts[0]} B2 {counts[1]}")
+        if backend != "ipm" and not st["mc_safe"] >= 1 - ALPHA:
+            raise AssertionError(f"{backend!r} MC safe {st['mc_safe']:.4f}")
+    return stats
+
+
+def phase9_hybrid_prox(torch, dev, m=50):
+    """(d) '_hybrid-prox' (validated in JAX at small M only) on the drone at
+    M=50, float64, with tests/test_scp_drone.py:238-261's SCP config (3
+    iterations, gate_iters 1), omegas of the port's sampler, seed 0: every
+    iterate finite; the QPs certified are reported. On these numbers the
+    third QP stops uncertified after 6021 ADMM iterations in the JAX
+    package as in the port (the same counts on the CPU); on JAX's
+    PRNGKey(0) sample both certify all three."""
+    from riskaversetrajopt_torch.core.config import SCPConfig
+
+    scp = SCPConfig(num_iters=3, gate_iters=1, gate_row_scale=1e-7,
+                    gate_bound_l=-0.1, gate_bound_u=0.1)
+    opt = drone_opt(torch, dev, m, scp, qp_backend="_hybrid-prox")
+    om = opt.sample(torch.Generator().manual_seed(0), m)
+    res, wall, _ = no_kernel_run(torch, dev, lambda: opt.solve(om, ALPHA),
+                                 "'_hybrid-prox' SCP")
+    log(f"f64 '_hybrid-prox' SCP M={m}, 3 iterations: {wall:.2f} s, QP "
+        f"iterations {res.qp_iters.tolist()}, certified "
+        f"{res.qp_solved.tolist()}")
+    for name in ("us", "xs", "l2_errors"):
+        if not bool(torch.isfinite(getattr(res, name)).all()):
+            raise AssertionError(f"'_hybrid-prox' {name} is not finite")
+    return {"wall_s": wall, "qp_iters": res.qp_iters.tolist(),
+            "qp_solved": res.qp_solved.tolist()}
+
+
+def phase9(torch, dev, opt64, gold):
+    """Phase 9: the interior-point family on the card."""
+    mc_om = opt64.sample(torch.Generator().manual_seed(99), 10000)
+    out = {"ipm_qp_m1000": phase9_ipm_qp(torch, dev, opt64)}
+    out["avar_qp_m10000"] = phase9_avar(torch, dev, opt64, gold, mc_om)
+    out["scp_m1000"] = phase9_scp(torch, dev, opt64, gold, mc_om)
+    out["hybrid_prox_m50"] = phase9_hybrid_prox(torch, dev)
+    log("phase 9 summary " + json.dumps(out))
+    return out
 
 
 def main():
@@ -1008,6 +1262,13 @@ def main():
     paths1.update(phase8_resume_and_many(torch, dev))
     phase8_clis(torch, dev)
     log(f"[phase 8] {time.perf_counter() - t:.2f} s")
+    t = time.perf_counter()
+    ipm_family = phase9(torch, dev, opt64, gold)
+    # this slice's paths reach neither kernel (no_kernel_run holds them to 0)
+    for backend, st in ipm_family["scp_m1000"].items():
+        where = f"drone M=1000 {backend!r} solve (phase 9)"
+        paths1[where], paths2[where] = st["kernel_launches"]
+    log(f"[phase 9] {time.perf_counter() - t:.2f} s")
     b1["launches_by_path"], b2["launches_by_path"] = paths1, paths2
     for k in (b1, b2):
         k["card"] = smi

@@ -379,12 +379,18 @@ def admm_solve(
     )
 
 
-def _polish(ops, q, l, u, x, y, z, cfg):
+def _polish(ops, q, l, u, x, y, z, cfg, eq_mask=None, active_masks=None):
     """Static-shape analog of OSQP polishing (admm.py:612-729): solve the
     KKT system with the active rows treated as stiff equalities (penalty
     factor as preconditioner + exact-residual refinement), then an
     active-set correction pass; accepted only if both residuals improve.
-    Returns x, y, z and whether the polished iterate was accepted."""
+
+    `active_masks` = (lower, upper) is a caller-supplied active set (the
+    IPM's lambda > s test: its duals are strictly interior, so the dual
+    sign over-selects); else the active set is the dual sign with a
+    relative dtype-aware threshold. Rows of `eq_mask` are always active and
+    never dropped. Returns x, y, z and whether the polished iterate was
+    accepted."""
     dtype = q.dtype
     n = q.shape[0]
     kw = dict(dtype=dtype, device=q.device)
@@ -393,10 +399,15 @@ def _polish(ops, q, l, u, x, y, z, cfg):
     sigma_p = torch.full((n,), 1e-7 if f32 else 1e-9, **kw)
     zero = torch.zeros((), **kw)
     eps = torch.finfo(dtype).eps
-    # dual sign (OSQP's rule) with a relative dtype-aware threshold
-    y_tol = eps**0.75 * torch.clamp(torch.amax(torch.abs(y)), min=1.0)
-    lower_active = y < -y_tol
-    upper_active = y > y_tol
+    if active_masks is not None:
+        lower_active, upper_active = active_masks
+    else:
+        y_tol = eps**0.75 * torch.clamp(torch.amax(torch.abs(y)), min=1.0)
+        lower_active = y < -y_tol
+        upper_active = y > y_tol
+    if eq_mask is not None:
+        # equality rows: l == u, so which bound they take is immaterial
+        lower_active = lower_active | eq_mask
     eq_like = lower_active & upper_active
 
     def solve_with(low, up):
@@ -423,7 +434,8 @@ def _polish(ops, q, l, u, x, y, z, cfg):
     # Active-set correction: drop rows whose multiplier took the wrong sign
     # and re-solve once; equality rows are never dropped
     s_tol = eps**0.5 * torch.clamp(torch.amax(torch.abs(y_pol)), min=1.0)
-    wrong = ~eq_like & (
+    droppable = ~eq_like if eq_mask is None else ~(eq_like | eq_mask)
+    wrong = droppable & (
         (lower_active & ~upper_active & (y_pol > s_tol))
         | (upper_active & ~lower_active & (y_pol < -s_tol))
     )
@@ -442,3 +454,60 @@ def _polish(ops, q, l, u, x, y, z, cfg):
     better = (p1 <= torch.clamp(p0, min=1e-10)) & (d1 <= torch.clamp(d0, min=1e-10))
     pick = lambda a, bb: torch.where(better, a, bb)  # noqa: E731
     return pick(x_pol, x), pick(y_pol, y), pick(z_pol, z), bool(better)
+
+
+class DenseQPOps:
+    """Dense instantiation (admm.py:731-782): P (n, n) and A (m, n)
+    materialized; the KKT system cP + diag(sigma) + A^T R A is solved by
+    Cholesky with `kkt_refine_iters` iterative-refinement passes. A factor
+    that fails is all NaN, as jnp.linalg.cholesky returns it."""
+
+    def __init__(self, P, A, kkt_refine_iters: int = 1):
+        self.P = P
+        self.A = A
+        self.kkt_refine_iters = kkt_refine_iters
+
+    def matvec_P(self, x):
+        return self.P @ x
+
+    def matvec_A(self, x):
+        return self.A @ x
+
+    def rmatvec_A(self, w):
+        return self.A.T @ w
+
+    def row_inf_norms(self, D):
+        return torch.amax(torch.abs(self.A) * D[None, :], dim=1)
+
+    def col_inf_norms(self, E):
+        return torch.amax(E[:, None] * torch.abs(self.A), dim=0)
+
+    def col_inf_norms_P(self, D):
+        return torch.amax(D[:, None] * torch.abs(self.P), dim=0)
+
+    def factorize(self, rho_vec, sigma_vec, cost_scale=1.0):
+        K = (cost_scale * self.P + torch.diag(sigma_vec)
+             + self.A.T @ (rho_vec[:, None] * self.A))
+        chol, info = torch.linalg.cholesky_ex(K)
+        return torch.where(info == 0, chol, torch.full_like(chol, float("nan")))
+
+    def kkt_solve(self, chol, rhs, rho_vec, sigma_vec, cost_scale=1.0):
+        def solve(r):
+            t = torch.linalg.solve_triangular(chol, r[:, None], upper=False)
+            return torch.linalg.solve_triangular(chol.T, t, upper=True)[:, 0]
+
+        x = solve(rhs)
+        for _ in range(self.kkt_refine_iters):
+            r = rhs - (cost_scale * (self.P @ x) + sigma_vec * x
+                       + self.A.T @ (rho_vec * (self.A @ x)))
+            x = x + solve(r)
+        return x
+
+
+def solve_dense_qp(P, q, A, l, u, cfg: SolverConfig = SolverConfig(), x0=None,
+                   y0=None, scale: bool = True,
+                   ruiz_iters: int = 5) -> QPSolution:
+    """One-call dense QP solve (OSQP setup + solve; admm.py:785-800)."""
+    ops = DenseQPOps(P, A, kkt_refine_iters=cfg.kkt_refine_iters)
+    scaling = ruiz_equilibrate(ops, q, l, u, iters=ruiz_iters) if scale else None
+    return admm_solve(ops, q, l, u, cfg, x0=x0, y0=y0, scaling=scaling)

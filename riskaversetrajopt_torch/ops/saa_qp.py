@@ -228,6 +228,11 @@ class SAAQPOps:
         self.p_diag, _ = build_objective(st, data)
         self.Malpha = st.M * data.alpha
         self.kkt_refine_iters = kkt_refine_iters
+        sc = self.scales
+        # some y meets the CVaR row alone: its y row and every sample row
+        # are zeroed while the CVaR row is live (the car's gated iteration)
+        self.free_y = bool(
+            (sc.c != 0) & (sc.g * sc.gy == 0) & torch.any(sc.y == 0))
 
     # -- pieces ------------------------------------------------------------
     def _split_z(self, z):
@@ -411,16 +416,23 @@ class SAAQPOps:
         C = torch.cat([C_u, C_s, C_t], dim=1)
 
         # --- Schur complement S = N_vv - C^T Nyy^-1 C via Sherman-Morrison ---
-        Dinv = 1.0 / D
-        DinvC = Dinv[:, None] * C
-        if comp:
-            p, e = dsjit.two_prod(C[:, :, None], DinvC[:, None, :])
-            CtDinvC = dsjit.ds_round(*dsjit.ds_sum(p, e, axis=0))
+        if self.free_y:
+            S, denom_yy = self._schur_free(N_vv, C, D, beta)
         else:
-            CtDinvC = C.T @ DinvC
-        one_DinvC = msum(DinvC)
-        denom = 1.0 + beta * msum(Dinv)
-        S = N_vv - (CtDinvC - (beta / denom) * torch.outer(one_DinvC, one_DinvC))
+            Dinv = 1.0 / D
+            DinvC = Dinv[:, None] * C
+            if comp:
+                p, e = dsjit.two_prod(C[:, :, None], DinvC[:, None, :])
+                CtDinvC = dsjit.ds_round(*dsjit.ds_sum(p, e, axis=0))
+            else:
+                CtDinvC = C.T @ DinvC
+            one_DinvC = msum(DinvC)
+            denom = 1.0 + beta * msum(Dinv)
+            S = N_vv - (CtDinvC
+                        - (beta / denom) * torch.outer(one_DinvC, one_DinvC))
+            # the Sherman-Morrison denominator of the y-block solves is
+            # loop-invariant per factorization (a plain sum, as in JAX)
+            denom_yy = 1.0 + beta * torch.sum(Dinv)
         chol_S = _jittered_cholesky(S)
         if self.kkt_chol_inverse:
             eye_v = torch.eye(n + 2, dtype=dtype, device=device)
@@ -428,10 +440,25 @@ class SAAQPOps:
             S_op = torch.linalg.solve_triangular(chol_S.T, t1, upper=True)
         else:
             S_op = chol_S
-        # the Sherman-Morrison denominator of the y-block solves is
-        # loop-invariant per factorization (a plain sum, as in JAX)
-        denom_yy = 1.0 + beta * torch.sum(Dinv)
         return (S_op, C, D, beta, N_vv, denom_yy)
+
+    def _schur_free(self, N_vv, C, D, beta):
+        """S and the Sherman-Morrison denominator where some y meets the
+        CVaR row alone (free_y): its D is sigma alone (Dinv = 1/sigma ~ 1e6),
+        and C^T Dinv C and the Sherman-Morrison term cancel to a result 1e6
+        times smaller than either. Both are formed in float64 from the
+        values the iteration applies (C, D and beta as stored), and S is
+        rounded to the working type; kkt_solve runs the y-block solves in
+        float64 too. In float64 this is the ordinary arithmetic."""
+        f64 = torch.float64
+        C64, beta64 = C.to(f64), beta.to(f64)
+        Dinv = 1.0 / D.to(f64)
+        DinvC = Dinv[:, None] * C64
+        one_DinvC = torch.sum(DinvC, dim=0)
+        denom = 1.0 + beta64 * torch.sum(Dinv)
+        S = N_vv.to(f64) - (C64.T @ DinvC - (beta64 / denom)
+                            * torch.outer(one_DinvC, one_DinvC))
+        return S.to(self.dtype), denom
 
     def _solve_yy(self, D, beta, r, denom):
         """(D + beta 11^T)^-1 r via Sherman-Morrison."""
@@ -444,16 +471,22 @@ class SAAQPOps:
         r_y = rhs[n : n + M]
         r_v = torch.cat([rhs[:n], rhs[n + M :]])
 
+        # the y-block elimination in float64 where some y meets the CVaR
+        # row alone (see _schur_free); else the casts are no-ops
+        wt = torch.float64 if self.free_y else self.dtype
+        C_w, D_w, beta_w, S_w = C.to(wt), D.to(wt), beta.to(wt), S_op.to(wt)
+
         def solve_once(r_v, r_y):
-            Nyy_inv_ry = self._solve_yy(D, beta, r_y, denom_yy)
-            rhs_v = r_v - C.T @ Nyy_inv_ry
+            r_v, r_y = r_v.to(wt), r_y.to(wt)
+            Nyy_inv_ry = self._solve_yy(D_w, beta_w, r_y, denom_yy)
+            rhs_v = r_v - C_w.T @ Nyy_inv_ry
             if self.kkt_chol_inverse:
-                v = S_op @ rhs_v  # S_op = S^-1 (see factorize)
+                v = S_w @ rhs_v  # S_op = S^-1 (see factorize)
             else:
-                t1 = _solve_triangular_vec(S_op, rhs_v, upper=False)
-                v = _solve_triangular_vec(S_op.T, t1, upper=True)
-            y = self._solve_yy(D, beta, r_y - C @ v, denom_yy)
-            return v, y
+                t1 = _solve_triangular_vec(S_w, rhs_v, upper=False)
+                v = _solve_triangular_vec(S_w.T, t1, upper=True)
+            y = self._solve_yy(D_w, beta_w, r_y - C_w @ v, denom_yy)
+            return v.to(self.dtype), y.to(self.dtype)
 
         def residual_true(x):
             return rhs - (

@@ -2,14 +2,17 @@
 
 The counterpart of ``riskaversetrajopt_tpu/scp/driver.py``. One SCP
 iteration = linearize (batched rollout + forward-mode Jacobians) + pack
-(structured epigraph) + ADMM solve, warm-started from the previous QP. The
+(structured epigraph) + QP solve, warm-started from the previous QP. The
 loop is a Python loop over iterations; the iterates stay on the device.
 
-Backends: 'admm' (the structured ADMM of ops/admm.py), '_admm-pallas'
-(the fused-kernel ADMM of ops/cuda/saa_admm.py) and '_admm-pallas-f' (the
-lane-flat fused-kernel ADMM of ops/cuda/saa_admm_f.py); the two fused
-backends are float32 only. The JAX package's other backends are not ported
-yet and raise.
+Backends: 'admm' (the structured ADMM of ops/admm.py), 'ipm' (the
+interior-point method of ops/ipm.py), 'hybrid' (IPM then warm ADMM on the
+first post-gating QPs, ADMM after), 'admm-ir' (ADMM + iterative refinement,
+ops/qp_refine.py), '_hybrid-prox' (a capped ADMM leg, rescued by a proximal
+IPM), '_admm-pallas' (the fused-kernel ADMM of ops/cuda/saa_admm.py) and
+'_admm-pallas-f' (the lane-flat fused-kernel ADMM of
+ops/cuda/saa_admm_f.py); the two fused backends are float32 only. The JAX
+package's 'admm-ds' is not ported yet and raises.
 
 Entry points: `solve` (with mid-solve checkpoint and resume), `solve_many`
 (independent instances one after another) and `solve_instrumented` (the
@@ -19,6 +22,7 @@ reference's define/solve timing harness).
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import time
 from typing import NamedTuple, Optional
 
@@ -28,17 +32,43 @@ import torch
 from riskaversetrajopt_torch.core.config import SCPConfig, SolverConfig
 from riskaversetrajopt_torch.models.base import resolve_device
 from riskaversetrajopt_torch.ops.cvar import avar
+from riskaversetrajopt_torch.ops.ipm import IPMConfig, solve_qp_ipm
+from riskaversetrajopt_torch.ops.qp_refine import (
+    IRConfig,
+    _ProxOps,
+    solve_saa_qp_ir,
+)
 from riskaversetrajopt_torch.ops.rollout import linearize_batch, rollout_batch
 from riskaversetrajopt_torch.ops.saa_qp import (
+    SAAQPOps,
     SAAQPStatic,
+    build_bounds,
+    build_objective,
     pack_saa_qp_data,
     solve_saa_qp,
 )
 from riskaversetrajopt_torch.utils import checkpoint as ckpt
 from riskaversetrajopt_torch.utils.profiling import annotate
 
-_BACKENDS = ("admm", "_admm-pallas", "_admm-pallas-f")
+_BACKENDS = ("admm", "ipm", "hybrid", "admm-ir", "_hybrid-prox",
+             "_admm-pallas", "_admm-pallas-f")
 _FUSED = ("_admm-pallas", "_admm-pallas-f")
+# the backends whose QPSolution.rho is an adapted ADMM rho, carried into the
+# next QP; the others carry the previous rho on (driver.py:548-562; the JAX
+# list adds the unported 'admm-ds', which solve_instrumented's omits)
+_RHO_BACKENDS = ("admm", "_admm-pallas", "_admm-pallas-f")
+# public JAX names that refuse with a pointer to the opt-in name
+# (driver.py:281-292, 338-347)
+_REFUSED = {
+    "hybrid-prox": "'hybrid-prox' is experimental and fails at "
+                   "M=1000/f32; use qp_backend='admm-ir' for certified tight "
+                   "tolerances, or opt into the experimental backend as "
+                   "'_hybrid-prox'",
+    "admm-pallas": "'admm-pallas' is experimental; opt in explicitly with "
+                   "qp_backend='_admm-pallas', or use 'admm'",
+    "admm-pallas-f": "'admm-pallas-f' is experimental; opt in explicitly "
+                     "with qp_backend='_admm-pallas-f', or use 'admm'",
+}
 
 
 class SCPResult(NamedTuple):
@@ -73,17 +103,25 @@ class SAATrajOpt:
         method: str = "saa",
         scp_cfg: Optional[SCPConfig] = None,
         qp_backend: str = "admm",
+        ipm_cfg: Optional[IPMConfig] = None,
         admm_cfg: Optional[SolverConfig] = None,
+        ir_cfg: Optional[IRConfig] = None,
+        hybrid_cap: int = 3000,
+        hybrid_prox: float = 1e-3,
         slack_penalty: Optional[float] = None,
         baseline_pad: float = 0.0,
         dtype=torch.float64,
         device=None,
     ):
-        if qp_backend not in _BACKENDS:
+        if qp_backend in _REFUSED:
+            raise ValueError(_REFUSED[qp_backend])
+        if qp_backend == "admm-ds":
             raise ValueError(
                 f"qp_backend {qp_backend!r} is not ported; the port has "
                 f"{_BACKENDS} (ROADMAP Queue A lists the others)"
             )
+        if qp_backend not in _BACKENDS:
+            raise ValueError(f"unknown qp backend {qp_backend!r}")
         if qp_backend in _FUSED and dtype != torch.float32:
             raise ValueError(
                 f"{qp_backend!r} runs a float32 fused kernel; pass "
@@ -91,12 +129,20 @@ class SAATrajOpt:
             )
         self.method = method
         self.qp_backend = qp_backend
+        # tol 1e-5 (relative merit): ~100x tighter than the reference's
+        # OSQP_TOL and reliably attainable on the degenerate epigraph QPs
+        self.ipm_cfg = ipm_cfg or IPMConfig(tol=1e-5, max_iter=40)
         # eps 1e-6, polish off, one KKT refinement pass: the golden-tracking
         # defaults of the JAX driver (driver.py:99-129 gives the measurements)
         self.admm_cfg = admm_cfg or SolverConfig(
             eps_abs=1e-6, eps_rel=1e-6, max_iter=20000,
             polish=False, kkt_refine_iters=1,
         )
+        self.ir_cfg = IRConfig() if ir_cfg is None else ir_cfg
+        # '_hybrid-prox': the ADMM legs' iteration cap and the proximal
+        # weight of the rescue IPM
+        self.hybrid_cap = hybrid_cap
+        self.hybrid_prox = hybrid_prox
         if self.admm_cfg.eps_sched_iters > 0 and qp_backend != "admm":
             raise ValueError(
                 "SolverConfig.eps_sched_iters is only implemented for the "
@@ -174,6 +220,22 @@ class SAATrajOpt:
             return saa_admm_f.solve_saa_qp_pallas_f(
                 st, data, scp_iter, self.admm_cfg, x0=x0, y0=y0, rho0=rho0,
             )
+        if self.qp_backend == "ipm":
+            return self._ipm_solve(st, data, scp_iter)
+        if self.qp_backend == "admm-ir":
+            return solve_saa_qp_ir(st, data, scp_iter, self.admm_cfg,
+                                   ir=self.ir_cfg, x0=x0, y0=y0)
+        if self.qp_backend == "_hybrid-prox":
+            return self._hybrid_prox_solve(st, data, scp_iter, x0, y0)
+        if (self.qp_backend == "hybrid"
+                and scp_iter < self.scp_cfg.gate_iters + 3):
+            # the first post-gating QPs: Mehrotra reaches the solution's
+            # basin in a few dozen iterations, and ADMM warm-started from
+            # its point (with cfg.rho) certifies it and keeps the
+            # prox-to-previous-iterate behavior (driver.py:402-422)
+            si = self._ipm_solve(st, data, scp_iter)
+            return solve_saa_qp(st, data, scp_iter, self.admm_cfg, x0=si.x,
+                                y0=si.y)
         eps_scale = None
         if self.admm_cfg.eps_sched_iters > 0:
             # inexact-SCP tolerance schedule: early subproblems terminate at
@@ -182,6 +244,36 @@ class SAATrajOpt:
                          if scp_iter < self.admm_cfg.eps_sched_iters else 1.0)
         return solve_saa_qp(st, data, scp_iter, self.admm_cfg, x0=x0, y0=y0,
                             rho0=rho0, eps_scale=eps_scale)
+
+    def _ipm_solve(self, st, data, scp_iter: int):
+        """The interior-point solve of one SCP subproblem."""
+        _, q = build_objective(st, data)
+        l, u = build_bounds(st, data, scp_iter)
+        return solve_qp_ipm(SAAQPOps(st, data, scp_iter), q, l, u,
+                            n_eq=st.n_fc, cfg=self.ipm_cfg)
+
+    def _hybrid_prox_solve(self, st, data, scp_iter: int, x0, y0):
+        """'_hybrid-prox' (driver.py:348-400): an ADMM leg capped at
+        hybrid_cap iterations keeps the warm path; if it does not certify, a
+        proximal IPM centered at its iterate finds (about) the projection of
+        that iterate onto the optimal face, and a second capped ADMM leg
+        certifies the result. Validated in JAX at small M only."""
+        quick_cfg = dataclasses.replace(self.admm_cfg, max_iter=self.hybrid_cap,
+                                        polish=False)
+        s1 = solve_saa_qp(st, data, scp_iter, quick_cfg, x0=x0, y0=y0)
+        if s1.solved:
+            return s1
+        ops = SAAQPOps(st, data, scp_iter,
+                       kkt_refine_iters=self.admm_cfg.kkt_refine_iters)
+        _, q = build_objective(st, data)
+        l, u = build_bounds(st, data, scp_iter)
+        sig = torch.tensor(self.hybrid_prox, dtype=self.dtype,
+                           device=self.device)
+        si = solve_qp_ipm(_ProxOps(ops, sig), q - sig * s1.x, l, u,
+                          n_eq=st.n_fc, cfg=self.ipm_cfg)
+        fin_cfg = dataclasses.replace(self.admm_cfg, max_iter=self.hybrid_cap)
+        s2 = solve_saa_qp(st, data, scp_iter, fin_cfg, x0=si.x, y0=si.y)
+        return s2._replace(iters=s1.iters + si.iters + s2.iters)
 
     # -- full SCP solve ----------------------------------------------------
     def solve(
@@ -290,9 +382,9 @@ class SAATrajOpt:
             qp_iters.append(sol.iters)
             qp_solved.append(sol.solved)
             us_hist.append(us)
-            # every ported backend adapts rho and carries it on (the ADMM
-            # family of driver.py:698)
-            warm = (sol.x, sol.y, sol.rho.to(self.dtype))
+            rho = (sol.rho.to(self.dtype) if self.qp_backend in _RHO_BACKENDS
+                   else warm[2])
+            warm = (sol.x, sol.y, rho)
             us_prev = us
             if ckpt is not None:
                 path, every = ckpt

@@ -426,3 +426,27 @@ def test_three_phase_kernel_algebra_free_rows(spb):
         for name, a, b in zip(ref._fields, out, ref):
             scale = max(float(torch.max(torch.abs(b))), 1.0)
             assert float(torch.max(torch.abs(a - b))) <= 1e-10 * scale, name
+
+
+def test_free_y_marks_only_the_car_gated_structure():
+    """SAAQPOps.free_y (the float64 y-block elimination of the float32
+    'admm' repair) is set exactly where some y meets the CVaR row alone:
+    the car's gated iteration. Every drone structure and the baselines keep
+    the plain float32 arithmetic."""
+    from riskaversetrajopt_torch.models.drone import DroneModel as TDroneModel
+    from tests.test_torch_scp import GOLDEN_SCP
+
+    cases = []
+    for method in ("saa", "baseline"):
+        car = _port_opt(1, method=method)
+        drone = tdriver.SAATrajOpt(
+            TDroneModel(tconfig.DroneScenario(M=M), device="cpu"),
+            method=method, scp_cfg=tconfig.SCPConfig(num_iters=1, **GOLDEN_SCP),
+            device="cpu")
+        for opt in (car, drone):
+            om = opt.sample(torch.Generator().manual_seed(0), M, method)
+            data = opt._define(opt.model.initial_guess(), om, torch.tensor(0.1))
+            for scp_iter in range(4):
+                free = tqp.SAAQPOps(opt._static_for(M), data, scp_iter).free_y
+                cases.append((opt is car, method, scp_iter, free))
+    assert [c for c in cases if c[3]] == [(True, "saa", 0, True)]

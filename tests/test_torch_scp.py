@@ -122,13 +122,12 @@ def test_admm_scp_float32_m8():
 def test_backend_choices_raise():
     """Deliberate differences from the JAX driver: the fused backends
     refuse a dtype other than float32 instead of running the XLA ADMM, and
-    the backends not ported yet raise."""
+    the one backend not ported yet ('admm-ds') raises."""
     for name in ("_admm-pallas", "_admm-pallas-f"):
         with pytest.raises(ValueError, match="float32"):
             _port(8, 1, qp_backend=name)
-    for name in ("ipm", "hybrid", "admm-ir", "admm-ds"):
-        with pytest.raises(ValueError, match="not ported"):
-            _port(8, 1, qp_backend=name)
+    with pytest.raises(ValueError, match="not ported"):
+        _port(8, 1, qp_backend="admm-ds")
 
 
 def test_card_is_the_default_device():
@@ -196,3 +195,131 @@ def test_port_never_imports_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert int(proc.stdout.split()[-1]) >= 12
+
+
+@pytest.mark.parametrize("name,pointer", [("hybrid-prox", "admm-ir"),
+                                          ("admm-pallas", "_admm-pallas"),
+                                          ("admm-pallas-f", "_admm-pallas-f")])
+def test_public_experimental_names_raise(name, pointer):
+    """The JAX public names that refuse (driver.py:281-292, 338-347) raise
+    ValueError pointing to the opt-in name ('hybrid-prox' to 'admm-ir', as
+    tests/test_scp_drone.py:238-261 asks); the port raises when the driver
+    is built, JAX when it solves. An unknown name raises too."""
+    with pytest.raises(ValueError, match=pointer):
+        _port(8, 1, qp_backend=name)
+    with pytest.raises(ValueError, match="unknown"):
+        _port(8, 1, qp_backend="nope")
+
+
+@pytest.fixture(scope="module")
+def hybrid_m8():
+    """The port's float64 'hybrid' SCP at M=8, 7 iterations, on the JAX
+    omegas (shared by the parity and the resume test)."""
+    return _port(8, 7, qp_backend="hybrid").solve(
+        interop.drone_omega(_jax_omegas(8)), alpha=0.2)
+
+
+@pytest.mark.parametrize("backend,num_iters", [("ipm", 5), ("hybrid", 7),
+                                               ("admm-ir", 5)])
+def test_ipm_family_scp_matches_jax_m8(backend, num_iters, request):
+    """float64, M=8, through the gating transition ('hybrid': IPM + ADMM for
+    the first gate_iters + 3 = 5 iterations, ADMM from cfg.rho after): the
+    same QP iteration counts and flags as JAX and the controls within 1e-6
+    relative (measured 1.9e-14 'ipm', 4.7e-11 'hybrid' at 5 iterations,
+    3.4e-11 'admm-ir')."""
+    om = _jax_omegas(8)
+    res_j = SAATrajOpt(DroneModel(DroneScenario(M=8)), qp_backend=backend,
+                       scp_cfg=SCPConfig(num_iters=num_iters, **GOLDEN_SCP)
+                       ).solve(om, alpha=0.2)
+    res_t = (request.getfixturevalue("hybrid_m8") if backend == "hybrid"
+             else _port(8, num_iters, qp_backend=backend).solve(
+                 interop.drone_omega(om), alpha=0.2))
+    assert res_t.qp_iters.tolist() == np.asarray(res_j.qp_iters).tolist()
+    assert res_t.qp_solved.tolist() == np.asarray(res_j.qp_solved).tolist()
+    us_j = np.asarray(res_j.us)
+    assert (np.linalg.norm(res_t.us.numpy() - us_j)
+            <= 1e-6 * np.linalg.norm(us_j))
+
+
+@pytest.mark.parametrize("hybrid_cap", [3000, 1000])
+def test_hybrid_prox_scp_m6(hybrid_cap):
+    """'_hybrid-prox' at M=6, 3 iterations, gate_iters 1
+    (tests/test_scp_drone.py:238-261): every QP certified. With the ADMM leg
+    capped at 1000 iterations the second QP goes through the proximal IPM
+    rescue (measured: 1510 iterations over the capped leg, the IPM and the
+    final leg); the port takes JAX's QP iterations there and lands within
+    1e-6 relative of its controls."""
+    scp = dict(GOLDEN_SCP, gate_iters=1)
+    om = _jax_omegas(6)
+    res_t = tdriver.SAATrajOpt(
+        TDroneModel(tconfig.DroneScenario(M=6), device="cpu"),
+        scp_cfg=tconfig.SCPConfig(num_iters=3, **scp), device="cpu",
+        qp_backend="_hybrid-prox", hybrid_cap=hybrid_cap,
+    ).solve(interop.drone_omega(om), alpha=0.2)
+    assert bool(res_t.qp_solved.all()), res_t.qp_solved
+    if hybrid_cap == 3000:
+        return
+    res_j = SAATrajOpt(DroneModel(DroneScenario(M=6)),
+                       scp_cfg=SCPConfig(num_iters=3, **scp),
+                       qp_backend="_hybrid-prox", hybrid_cap=hybrid_cap
+                       ).solve(om, alpha=0.2)
+    assert res_t.qp_iters.tolist() == np.asarray(res_j.qp_iters).tolist()
+    us_j = np.asarray(res_j.us)
+    assert (np.linalg.norm(res_t.us.numpy() - us_j)
+            <= 1e-6 * np.linalg.norm(us_j))
+
+
+def test_hybrid_instrumented_resume_keeps_cfg_rho(tmp_path, hybrid_m8):
+    """The rho carry through 'hybrid' (driver.py:548-562, 698-702): only the
+    ADMM family carries its adapted rho into the next QP; 'hybrid' carries
+    the previous one on, so its ADMM legs after gate_iters + 3 start from
+    cfg.rho. solve_instrumented to iteration 6 snapshots cfg.rho, and
+    resuming it to 7 reproduces the uninterrupted solve (itself JAX's
+    iteration counts, test_ipm_family_scp_matches_jax_m8)."""
+    om = interop.drone_omega(_jax_omegas(8))
+    full = hybrid_m8
+    path = tmp_path / "hybrid.npz"
+    part = _port(8, 6, qp_backend="hybrid")
+    part.solve_instrumented(om, 0.2, checkpoint_path=path)
+    from riskaversetrajopt_torch.utils import checkpoint as ckpt
+
+    saved = ckpt.load(path)
+    assert saved.scp_iter == 6
+    assert float(saved.warm_rho) == part.admm_cfg.rho
+    out = _port(8, 7, qp_backend="hybrid").solve_instrumented(
+        om, 0.2, checkpoint_path=path)
+    assert len(out["solve_times"]) == 1
+    torch.testing.assert_close(out["us"], full.us, rtol=1e-10, atol=1e-12)
+    np.testing.assert_allclose(out["l2_errors"], full.l2_errors[-1:].numpy(),
+                               rtol=1e-8)
+
+
+def test_car_admm_scp_float32_m50_contract():
+    """The repair of the car's gated QP in float32 (SAAQPOps.free_y): the
+    float32 'admm' car SCP at M=50, 15 iterations, chip_smoke.py's fused
+    solver config (eps 1e-4, rho warm start), on the JAX omegas of
+    PRNGKey(0), holds tests/test_scp_car.py:14-44's contract, final
+    L2 < 2e-2 included, with every QP certified. Before the repair the
+    first QP reached NaN (both packages)."""
+    import dataclasses
+
+    from riskaversetrajopt_torch.models.car import CarModel as TCarModel
+    from riskaversetrajopt_tpu.core.config import CarScenario
+    from riskaversetrajopt_tpu.models.car import CarModel
+    from tests.test_torch_car import car_contract
+
+    model = TCarModel(tconfig.CarScenario(M=50), device="cpu")
+    cfg = tconfig.SolverConfig(eps_abs=1e-4, eps_rel=1e-4, max_iter=20000,
+                               polish=False, rho_warm_start=True)
+    opt = tdriver.SAATrajOpt(
+        model, scp_cfg=dataclasses.replace(model.default_scp_config(),
+                                           num_iters=15),
+        admm_cfg=cfg, dtype=torch.float32, device="cpu")
+    om = interop.car_omega(
+        CarModel(CarScenario(M=50)).sample(jax.random.PRNGKey(0), 50),
+        dtype=torch.float32)
+    res = opt.solve(om, alpha=0.1)
+    assert res.us.dtype == torch.float32
+    assert bool(res.qp_solved.all()), res.qp_iters
+    assert float(res.l2_errors[-1]) < 2e-2, res.l2_errors
+    car_contract(opt.model, res, om, 0.1)
