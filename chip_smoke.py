@@ -52,6 +52,23 @@ Phases, in order (each prints its seconds; any failure exits non-zero):
      JAX bench's parity config) with MC beside the golden's, 'hybrid' and
      'admm-ir' held to MC safe >= 1 - alpha; '_hybrid-prox' at M=50, its
      QPs certified reported.
+ 10. the double-single ADMM and the Gaussian car baseline, which reach
+     neither kernel (both counts held to 0 around each run): (a) on phase
+     1's M=1000 QP, from one start and with the same float32 Ruiz scaling,
+     DS_ITERS ADMM iterations at fixed rho of float64 and float32
+     admm_solve and of solve_saa_qp_ds; the ds iterate must lie within a
+     tenth of the float32 one's distance from the float64 one; ds ms and
+     kernels per iteration (torch.profiler); (b) the 'admm-ds' SCP at
+     M=1000 with the JAX bench's ds config, cut to DS_SCP_ITERS SCP
+     iterations: QPs certified, L2 to the golden (MC safe >= 1 - alpha
+     once the depth reaches 15); (c) the Gaussian car at CarScenario():
+     float64 'ipm' at alpha 0.1, 25 SCP iterations, held to
+     tests/test_gaussian.py:47-62; float32 'admm-ir' at alpha 0.05, 20
+     iterations, every QP certified and within 1e-3 relative L2 of float64;
+     the Gaussian plan's MC safe fraction and cost on the car's 10000
+     samples; (d) in phase 8, the driving_gaussian CLI writes its result
+     into the car CLI's results directory first, and the driving CLI's
+     Monte-Carlo report reads it.
 Then one JSON line describing each kernel (with its launches on every path
 above), the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}.
@@ -73,7 +90,15 @@ FIXTURES = REPO / "tests" / "fixtures"
 M, ALPHA, SCP_ITERS, CHUNK, CHUNK_F = 1000, 0.2, 15, 100, 25
 M_STREAM = 2000  # beyond shared-memory residency of the G slab
 CAR_M, CAR_ALPHA = 50, 0.1  # the car CLI's defaults (CarScenario().M)
+GAUSS_ITERS = 25  # the Gaussian car's SCP depth (tests/test_gaussian.py:48)
 PRECISIONS = ("highest", "high", "default")
+# phase 10: ADMM iterations of the ds-vs-float64 tracking check, and the SCP
+# depth of the 'admm-ds' drone solve (cut from 15: the third QP runs to the
+# 45000 cap in the JAX bench's ds leg, at several ms per ds iteration)
+DS_ITERS, DS_SCP_ITERS = 200, 2
+# depth cut in phase 9 to keep the script near 700 s once phase 10 came in:
+# the '_hybrid-prox' SCP's iterations (3 before)
+HYBRID_PROX_ITERS = 2
 # Kernel vs plain after 100 iterations, |a - b| <= TOL * (1 + |b|) per
 # element: both run float32 with sums taken in different orders (blocked
 # partials in the kernel, cuBLAS/ATen reductions in the plain version), and
@@ -934,18 +959,36 @@ def drone_cli(dev, rdir):
 
 
 def car_cli(dev, rdir):
+    """The driving_gaussian CLI (alpha 0.1, 25 SCP iterations, phase 10(d))
+    and then the driving CLI into one results directory: the driving CLI's
+    Monte-Carlo report reads the Gaussian baseline's file."""
     import re
 
     import numpy as np
+    import torch
 
-    from riskaversetrajopt_torch.experiments import common, driving
+    from riskaversetrajopt_torch.experiments import (
+        common,
+        driving,
+        driving_gaussian,
+    )
 
+    (_, g_wall), _, _ = no_kernel_run(
+        torch, dev, lambda: run_cli(driving_gaussian.main, [
+            "--alphas", str(CAR_ALPHA), "--scp-iters", str(GAUSS_ITERS),
+            "--results", rdir], dev), "driving_gaussian CLI")
+    gfile = f"driving_gaussian_alpha={CAR_ALPHA}.npy"
+    us, xs = common.load_traj(f"{rdir}/{gfile}")
+    log(f"driving_gaussian CLI: {g_wall:.2f} s, {gfile}: us {us.shape}, "
+        f"xs {xs.shape}")
+    if us.shape != (20, 2) or xs.shape != (21, 8) or not np.isfinite(xs).all():
+        raise AssertionError(f"driving_gaussian CLI: {us.shape}, {xs.shape}")
     out, wall = run_cli(driving.main, [
         "--repeats", "1", "--alphas", str(CAR_ALPHA), "--scp-iters",
         str(SCP_ITERS), "--results", rdir], dev)
     files = sorted(p.name for p in Path(rdir).iterdir())
-    want = ["driving_alpha=0.1_repeat=0.npy",
-            "driving_baseline.npy", "driving_computation_times.npy"]
+    want = ["driving_alpha=0.1_repeat=0.npy", "driving_baseline.npy",
+            "driving_computation_times.npy", gfile]
     alphas, d_t, s_t, c_t, l2s = common.load_timing(
         f"{rdir}/driving_computation_times.npy")
     l2 = float(np.median(l2s[:, :, -1]))
@@ -956,8 +999,10 @@ def car_cli(dev, rdir):
         f"{np.median(d_t) * 1e3:.2f} / {np.median(s_t) * 1e3:.2f}")
     if files != want or not l2 < 1e-2 or d_t.shape != (1, 1, SCP_ITERS):
         raise AssertionError("driving CLI: wrong files, L2 or timing shape")
-    if "run the driving_gaussian experiment first" not in out:
-        raise AssertionError("driving CLI: no Gaussian-baseline message")
+    gauss = re.search(rf"alpha={CAR_ALPHA}: safe=(\S+) cost=(\S+)", out)
+    if "run the driving_gaussian experiment first" in out or gauss is None:
+        raise AssertionError("driving CLI: no Gaussian-baseline comparison")
+    log(f"driving CLI, Gaussian baseline: MC safe {gauss[1]}, cost {gauss[2]}")
 
 
 def parity_config():
@@ -1167,22 +1212,23 @@ def phase9_scp(torch, dev, opt64, gold, mc_om, m=M):
 
 def phase9_hybrid_prox(torch, dev, m=50):
     """(d) '_hybrid-prox' (validated in JAX at small M only) on the drone at
-    M=50, float64, with tests/test_scp_drone.py:238-261's SCP config (3
-    iterations, gate_iters 1), omegas of the port's sampler, seed 0: every
-    iterate finite; the QPs certified are reported. On these numbers the
-    third QP stops uncertified after 6021 ADMM iterations in the JAX
-    package as in the port (the same counts on the CPU); on JAX's
-    PRNGKey(0) sample both certify all three."""
+    M=50, float64, with tests/test_scp_drone.py:238-261's SCP config
+    (gate_iters 1) cut from 3 iterations to HYBRID_PROX_ITERS, omegas of the
+    port's sampler, seed 0: every iterate finite; the QPs certified are
+    reported. On these numbers the third QP stops uncertified after 6021
+    ADMM iterations in the JAX package as in the port (the same counts on
+    the CPU; 13 s of the 27 s on the card); on JAX's PRNGKey(0) sample
+    both certify all three."""
     from riskaversetrajopt_torch.core.config import SCPConfig
 
-    scp = SCPConfig(num_iters=3, gate_iters=1, gate_row_scale=1e-7,
-                    gate_bound_l=-0.1, gate_bound_u=0.1)
+    scp = SCPConfig(num_iters=HYBRID_PROX_ITERS, gate_iters=1,
+                    gate_row_scale=1e-7, gate_bound_l=-0.1, gate_bound_u=0.1)
     opt = drone_opt(torch, dev, m, scp, qp_backend="_hybrid-prox")
     om = opt.sample(torch.Generator().manual_seed(0), m)
     res, wall, _ = no_kernel_run(torch, dev, lambda: opt.solve(om, ALPHA),
                                  "'_hybrid-prox' SCP")
-    log(f"f64 '_hybrid-prox' SCP M={m}, 3 iterations: {wall:.2f} s, QP "
-        f"iterations {res.qp_iters.tolist()}, certified "
+    log(f"f64 '_hybrid-prox' SCP M={m}, {HYBRID_PROX_ITERS} iterations: "
+        f"{wall:.2f} s, QP iterations {res.qp_iters.tolist()}, certified "
         f"{res.qp_solved.tolist()}")
     for name in ("us", "xs", "l2_errors"):
         if not bool(torch.isfinite(getattr(res, name)).all()):
@@ -1199,6 +1245,247 @@ def phase9(torch, dev, opt64, gold):
     out["scp_m1000"] = phase9_scp(torch, dev, opt64, gold, mc_om)
     out["hybrid_prox_m50"] = phase9_hybrid_prox(torch, dev)
     log("phase 9 summary " + json.dumps(out))
+    return out
+
+
+def launches_per_call(torch, fn):
+    """fn() under torch.profiler: (the kernels it launched, counted by the
+    runtime's launch calls, and those the device trace shows; None where
+    the profiler recorded none)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    api = sum(e.count for e in events
+              if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                           "cuLaunchKernel", "cudaLaunchCooperativeKernel"))
+    dev = sum(e.count for e in events
+              if e.device_type == torch.autograd.DeviceType.CUDA)
+    return api, (dev or None)
+
+
+def tracking_runs(torch, st, data32, iters, scp_iter=3):
+    """`iters` ADMM iterations on one QP from the same cold start at fixed
+    rho (adaptive rho off, eps 0: no termination, no refactorization): float64
+    and float32 admm_solve, both with the float32 Ruiz scaling that
+    solve_saa_qp_ds computes for itself, and solve_saa_qp_ds on the float32
+    data. Returns {name: (solution, wall seconds)}."""
+    from riskaversetrajopt_torch.core.config import SolverConfig
+    from riskaversetrajopt_torch.ops import admm
+    from riskaversetrajopt_torch.ops.admm_ds import solve_saa_qp_ds
+    from riskaversetrajopt_torch.ops.saa_qp import (
+        SAAQPOps, build_bounds, build_objective,
+    )
+
+    cfg = SolverConfig(eps_abs=0.0, eps_rel=0.0, max_iter=iters,
+                       adaptive_rho=False, polish=False, kkt_refine_iters=1)
+    data64 = type(data32)(*(x.double() for x in data32))
+    qps = {}
+    for name, data in (("f32", data32), ("f64", data64)):
+        _, q = build_objective(st, data)
+        qps[name] = (SAAQPOps(st, data, scp_iter), q,
+                     *build_bounds(st, data, scp_iter))
+    sc32 = admm.ruiz_equilibrate(*qps["f32"], iters=5)
+    scalings = {"f32": sc32, "f64": admm.Scaling(*(v.double() for v in sc32))}
+    dev = data32.G.device
+    out = {}
+    for name in ("f64", "f32"):
+        sol, wall = timed(torch, dev, lambda: admm.admm_solve(
+            *qps[name], cfg, scaling=scalings[name]))
+        out[name] = (sol, wall)
+    out["ds"] = timed(torch, dev,
+                      lambda: solve_saa_qp_ds(st, data32, scp_iter, cfg))
+    for name, (sol, _) in out.items():
+        if sol.iters != iters:
+            raise AssertionError(f"{name}: {sol.iters} iterations, not {iters}")
+    return out
+
+
+def timed(torch, dev, fn):
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    out = fn()
+    sync(torch, dev)
+    return out, time.perf_counter() - t0
+
+
+def phase10_track(torch, dev, st, data32):
+    """(a) The ds iterate tracks the float64 one: DS_ITERS iterations on
+    phase 1's QP (tracking_runs), ||x_ds - x_64|| <= 0.1 ||x_32 - x_64||;
+    ds ms per iteration (the DS_ITERS run, set-up included) and kernels per
+    iteration beside float64 admm_solve's: the launches of a 5-iteration
+    run (one termination check, check_every 5) less those of a 0-iteration
+    run (the set-up), over 5. The profiler's own cost grows with the
+    events, so the window is short; with the production check_every of
+    25 the check's share per iteration is a fifth of this one's."""
+    from riskaversetrajopt_torch.core.config import SolverConfig
+    from riskaversetrajopt_torch.ops import admm
+    from riskaversetrajopt_torch.ops.admm_ds import solve_saa_qp_ds
+    from riskaversetrajopt_torch.ops.saa_qp import (
+        SAAQPOps, build_bounds, build_objective,
+    )
+
+    runs, _, _ = no_kernel_run(
+        torch, dev, lambda: tracking_runs(torch, st, data32, DS_ITERS),
+        "the ds tracking runs")
+    x64 = runs["f64"][0].x
+    norm = lambda v: float(torch.linalg.norm(v.double() - x64))  # noqa: E731
+    e32, eds = norm(runs["f32"][0].x), norm(runs["ds"][0].x)
+    scale = float(torch.linalg.norm(x64))
+    ms = {k: w * 1e3 / DS_ITERS for k, (_, w) in runs.items()}
+    data64 = type(data32)(*(x.double() for x in data32))
+    _, q64 = build_objective(st, data64)
+    ops64 = SAAQPOps(st, data64, 3)
+    l64, u64 = build_bounds(st, data64, 3)
+    sc64 = admm.ruiz_equilibrate(ops64, q64, l64, u64)
+    solvers = {
+        "ds": lambda cfg: solve_saa_qp_ds(st, data32, 3, cfg),
+        "f64": lambda cfg: admm.admm_solve(ops64, q64, l64, u64, cfg,
+                                           scaling=sc64),
+    }
+    per_it = {}
+    for name, solve in solvers.items():
+        counts = [launches_per_call(torch, lambda: solve(SolverConfig(
+            eps_abs=0.0, eps_rel=0.0, max_iter=n, check_every=5,
+            adaptive_rho=False, polish=False))) for n in (0, 5)]
+        per_it[name] = {
+            "launch_calls": (counts[1][0] - counts[0][0]) / 5,
+            "device_kernels": (None if None in (counts[0][1], counts[1][1])
+                               else (counts[1][1] - counts[0][1]) / 5)}
+    log(f"ds tracking, M={st.M} QP (scp_iter 3), {DS_ITERS} iterations at "
+        f"fixed rho from one start: ||x_32 - x_64|| {e32:.3e}, ||x_ds - "
+        f"x_64|| {eds:.3e} (||x_64|| {scale:.3e}); ratio {eds / e32:.3e}")
+    log(f"  ms per iteration: ds {ms['ds']:.3f}, f32 {ms['f32']:.3f}, f64 "
+        f"{ms['f64']:.3f}; kernels per iteration with one check per 5 "
+        f"(launch calls / device trace): ds {per_it['ds']}, f64 "
+        f"{per_it['f64']}")
+    if not eds <= 0.1 * e32:
+        raise AssertionError(f"the ds iterate is {eds:.3e} from float64, the "
+                             f"float32 one {e32:.3e}")
+    return {"iters": DS_ITERS, "err_f32": e32, "err_ds": eds, "x64_norm": scale,
+            "ms_per_iter": ms, "kernels_per_iter_check_every_5": per_it}
+
+
+def ds_config():
+    """The JAX bench's ds leg (bench.py:625-626 through make, bench.py:
+    57-100, its environment defaults): eps 1e-6, cap 45000, polish off, no
+    rho warm start, no explicit Schur inverse, the "factored" KKT
+    refinement, rho_update_factor 1.5."""
+    from riskaversetrajopt_torch.core.config import SolverConfig
+
+    return SolverConfig(eps_abs=1e-6, eps_rel=1e-6, max_iter=45000,
+                        polish=False, kkt_refine_iters=1,
+                        kkt_refine_mode="factored", rho_update_factor=1.5,
+                        rho_warm_start=False, kkt_chol_inverse=False)
+
+
+def phase10_ds_scp(torch, dev, opt64, gold, mc_om):
+    """(b) The float32 'admm-ds' drone SCP at M=1000 on the fixture omegas,
+    the bench's ds config, the golden SCP config cut to DS_SCP_ITERS
+    iterations: every iterate finite; QPs certified and the L2 to the
+    golden reported; MC on phase 9's samples, held to >= 1 - alpha once the
+    depth reaches 15."""
+    from dataclasses import replace
+
+    from riskaversetrajopt_torch.scp.driver import l2_error_us
+
+    scp = replace(golden_scp_config(), num_iters=DS_SCP_ITERS)
+    opt = drone_opt(torch, dev, M, scp, qp_backend="admm-ds",
+                    admm_cfg=ds_config(), dtype=torch.float32)
+    om = load_omegas(torch, torch.float32, dev)
+    res, wall, counts = no_kernel_run(torch, dev, lambda: opt.solve(om, ALPHA),
+                                      "'admm-ds' SCP")
+    for name in ("us", "xs", "l2_errors", "us_history"):
+        if not bool(torch.isfinite(getattr(res, name)).all()):
+            raise AssertionError(f"'admm-ds' {name} is not finite")
+    mc = opt64.monte_carlo(res.us.to(torch.float64), mc_om, ALPHA)
+    iters = res.qp_iters.tolist()
+    st = {"scp_iters": DS_SCP_ITERS, "wall_s": wall, "qp_iters": iters,
+          "qps_certified": int(res.qp_solved.sum()),
+          "l2_vs_golden": float(l2_error_us(gold, res.us.to(gold))),
+          "mc_safe": float(mc["safe_frac"]), "mc_cost": float(mc["cost"]),
+          "kernel_launches": counts}
+    log(f"f32 'admm-ds' SCP M={M}, {DS_SCP_ITERS} SCP iterations: {wall:.2f} "
+        f"s, QP iterations {iters}, QPs certified {st['qps_certified']} of "
+        f"{len(iters)}, relative L2 vs the 15-iteration golden "
+        f"{st['l2_vs_golden']:.3e}; MC safe {st['mc_safe']:.4f}, cost "
+        f"{st['mc_cost']:.4f}; kernel calls B1 {counts[0]} B2 {counts[1]}")
+    if DS_SCP_ITERS >= SCP_ITERS and not st["mc_safe"] >= 1 - ALPHA:
+        raise AssertionError(f"'admm-ds' MC safe {st['mc_safe']:.4f}")
+    return st
+
+
+def phase10_gaussian(torch, dev):
+    """(c) The Gaussian car at CarScenario(): float64 'ipm', alpha 0.1,
+    GAUSS_ITERS SCP iterations, held to tests/test_gaussian.py:47-62 (every
+    QP converged, last L2 < 1e-4, the risk budget and floor, padded
+    separation <= 1e-6, mean final state at the goal within 1e-5); float32
+    'admm-ir', alpha 0.05, 20 iterations, every QP certified, within 1e-3
+    relative L2 of float64 'ipm''s at alpha 0.05
+    (tests/test_f32_gaussian.py:92-117); both plans' MC safe fraction and
+    cost on phase 7's 10000 car samples (seed 99), reported."""
+    from riskaversetrajopt_torch.core.config import CarScenario
+    from riskaversetrajopt_torch.models.car_gaussian import GaussianCarPlanner
+
+    car = car_opt(torch)
+    mc_om = car.sample(torch.Generator().manual_seed(99), 10000)
+    out = {}
+    runs = (("f64_ipm_a0.1", 0.1, GAUSS_ITERS, torch.float64),
+            ("f64_ipm_a0.05", 0.05, 20, torch.float64),
+            ("f32_admm-ir_a0.05", 0.05, 20, torch.float32))
+    res = {}
+    for name, alpha, iters, dtype in runs:
+        p = GaussianCarPlanner(CarScenario(), alpha=alpha, num_scp_iters=iters,
+                               dtype=dtype)
+        r, wall, _ = no_kernel_run(torch, dev, p.solve, f"Gaussian car {name}")
+        res[name] = (p, r)
+        mc = car.monte_carlo(r.us.to(torch.float64), mc_om, alpha)
+        st = {"wall_s": wall, "qps_certified": int(r.qp_solved.sum()),
+              "scp_iters": iters, "l2_last": float(r.l2_errors[-1]),
+              "sum_alphas": float(torch.sum(r.alphas_risk)),
+              "mc_safe": float(mc["safe_frac"]), "mc_cost": float(mc["cost"])}
+        out[name] = st
+        log(f"Gaussian car {name}: {wall:.2f} s, {iters} SCP iterations, "
+            f"QPs certified {st['qps_certified']}, last L2 {st['l2_last']:.3e},"
+            f" sum(alphas_risk) {st['sum_alphas']:.6f}; MC (10000 car "
+            f"samples, seed 99) safe {st['mc_safe']:.4f}, cost "
+            f"{st['mc_cost']:.4f}")
+        if not bool(torch.isfinite(r.us).all()) or not all(r.qp_solved.tolist()):
+            raise AssertionError(f"Gaussian car {name}: {r.qp_solved.tolist()}")
+    p, r = res["f64_ipm_a0.1"]
+    sep = float(torch.max(p.separation_constraints(r.us, r.alphas_risk)))
+    goal = torch.cat([p.scn.position_ego_goal, p.scn.velocity_ego_goal]).to(r.xs)
+    final = float(torch.max(torch.abs(r.xs[-1, :4] - goal)))
+    a = r.alphas_risk
+    if not (out["f64_ipm_a0.1"]["l2_last"] < 1e-4
+            and float(a.sum()) <= 0.1 + 1e-6
+            and float(a.min()) >= 100 * p.OSQP_TOL - 1e-12
+            and sep <= 1e-6 and final <= 1e-5):
+        raise AssertionError(f"Gaussian car f64 contract: padded separation "
+                             f"{sep:.3e}, final state {final:.3e}, "
+                             f"{out['f64_ipm_a0.1']}")
+    us32, us64 = (res[k][1].us.double() for k in ("f32_admm-ir_a0.05",
+                                                   "f64_ipm_a0.05"))
+    rel = float(torch.linalg.norm(us32 - us64) / torch.linalg.norm(us64))
+    out["f32_vs_f64_rel_l2"] = rel
+    log(f"Gaussian car: f64 padded separation max {sep:.3e}, final-state "
+        f"error {final:.3e}; f32 'admm-ir' vs f64 'ipm' at alpha 0.05: "
+        f"relative L2 {rel:.3e}")
+    if not rel <= 1e-3:
+        raise AssertionError(f"Gaussian car f32 vs f64: {rel:.3e}")
+    return out
+
+
+def phase10(torch, dev, problem, opt64, gold):
+    """Phase 10: the double-single ADMM and the Gaussian car on the card."""
+    _, _, _, _, st, data32 = problem
+    mc_om = opt64.sample(torch.Generator().manual_seed(99), 10000)
+    out = {"ds_tracking_m1000": phase10_track(torch, dev, st, data32)}
+    out["ds_scp_m1000"] = phase10_ds_scp(torch, dev, opt64, gold, mc_om)
+    out["gaussian_car"] = phase10_gaussian(torch, dev)
+    log("phase 10 summary " + json.dumps(out))
     return out
 
 
@@ -1269,6 +1556,12 @@ def main():
         where = f"drone M=1000 {backend!r} solve (phase 9)"
         paths1[where], paths2[where] = st["kernel_launches"]
     log(f"[phase 9] {time.perf_counter() - t:.2f} s")
+    t = time.perf_counter()
+    ds_gauss = phase10(torch, dev, problem, opt64, gold)
+    # nor do this slice's (no_kernel_run holds them to 0)
+    where = "drone M=1000 'admm-ds' solve (phase 10)"
+    paths1[where], paths2[where] = ds_gauss["ds_scp_m1000"]["kernel_launches"]
+    log(f"[phase 10] {time.perf_counter() - t:.2f} s")
     b1["launches_by_path"], b2["launches_by_path"] = paths1, paths2
     for k in (b1, b2):
         k["card"] = smi

@@ -11,8 +11,8 @@ first post-gating QPs, ADMM after), 'admm-ir' (ADMM + iterative refinement,
 ops/qp_refine.py), '_hybrid-prox' (a capped ADMM leg, rescued by a proximal
 IPM), '_admm-pallas' (the fused-kernel ADMM of ops/cuda/saa_admm.py) and
 '_admm-pallas-f' (the lane-flat fused-kernel ADMM of
-ops/cuda/saa_admm_f.py); the two fused backends are float32 only. The JAX
-package's 'admm-ds' is not ported yet and raises.
+ops/cuda/saa_admm_f.py); the two fused backends are float32 only. 'admm-ds'
+runs the ADMM with double-single iterates of ops/admm_ds.py.
 
 Entry points: `solve` (with mid-solve checkpoint and resume), `solve_many`
 (independent instances one after another) and `solve_instrumented` (the
@@ -31,6 +31,7 @@ import torch
 
 from riskaversetrajopt_torch.core.config import SCPConfig, SolverConfig
 from riskaversetrajopt_torch.models.base import resolve_device
+from riskaversetrajopt_torch.ops.admm_ds import solve_saa_qp_ds
 from riskaversetrajopt_torch.ops.cvar import avar
 from riskaversetrajopt_torch.ops.ipm import IPMConfig, solve_qp_ipm
 from riskaversetrajopt_torch.ops.qp_refine import (
@@ -50,13 +51,15 @@ from riskaversetrajopt_torch.ops.saa_qp import (
 from riskaversetrajopt_torch.utils import checkpoint as ckpt
 from riskaversetrajopt_torch.utils.profiling import annotate
 
-_BACKENDS = ("admm", "ipm", "hybrid", "admm-ir", "_hybrid-prox",
+_BACKENDS = ("admm", "ipm", "hybrid", "admm-ir", "admm-ds", "_hybrid-prox",
              "_admm-pallas", "_admm-pallas-f")
 _FUSED = ("_admm-pallas", "_admm-pallas-f")
 # the backends whose QPSolution.rho is an adapted ADMM rho, carried into the
-# next QP; the others carry the previous rho on (driver.py:548-562; the JAX
-# list adds the unported 'admm-ds', which solve_instrumented's omits)
-_RHO_BACKENDS = ("admm", "_admm-pallas", "_admm-pallas-f")
+# next QP; the others carry the previous rho on. The JAX driver keeps two
+# lists: solve and solve_many carry 'admm-ds''s rho (driver.py:550),
+# solve_instrumented does not (driver.py:698)
+_RHO_BACKENDS = ("admm", "admm-ds", "_admm-pallas", "_admm-pallas-f")
+_RHO_BACKENDS_INSTRUMENTED = ("admm", "_admm-pallas", "_admm-pallas-f")
 # public JAX names that refuse with a pointer to the opt-in name
 # (driver.py:281-292, 338-347)
 _REFUSED = {
@@ -115,11 +118,6 @@ class SAATrajOpt:
     ):
         if qp_backend in _REFUSED:
             raise ValueError(_REFUSED[qp_backend])
-        if qp_backend == "admm-ds":
-            raise ValueError(
-                f"qp_backend {qp_backend!r} is not ported; the port has "
-                f"{_BACKENDS} (ROADMAP Queue A lists the others)"
-            )
         if qp_backend not in _BACKENDS:
             raise ValueError(f"unknown qp backend {qp_backend!r}")
         if qp_backend in _FUSED and dtype != torch.float32:
@@ -227,6 +225,13 @@ class SAATrajOpt:
                                    ir=self.ir_cfg, x0=x0, y0=y0)
         if self.qp_backend == "_hybrid-prox":
             return self._hybrid_prox_solve(st, data, scp_iter, x0, y0)
+        if self.qp_backend == "admm-ds":
+            # double-single iterates, which track the float64 solution
+            # branch through the degenerate post-gating QPs; the eps
+            # schedule does not apply (driver.py:265-280)
+            return solve_saa_qp_ds(st, data, scp_iter, self.admm_cfg, x0=x0,
+                                   y0=y0, rho0=rho0,
+                                   ds_kkt_passes=self.admm_cfg.ds_kkt_passes)
         if (self.qp_backend == "hybrid"
                 and scp_iter < self.scp_cfg.gate_iters + 3):
             # the first post-gating QPs: Mehrotra reaches the solution's
@@ -356,10 +361,12 @@ class SAATrajOpt:
         return SCPResult(*(torch.stack(f) for f in zip(*results)))
 
     def _solve_core(self, omegas, alpha, M: int, start_iter: int = 0,
-                    ckpt=None, resume=None, phase=None) -> SCPResult:
+                    ckpt=None, resume=None, phase=None,
+                    rho_backends=_RHO_BACKENDS) -> SCPResult:
         """The SCP loop. `phase(name)`, where given, is a context manager
         around each iteration's "define" and "solve" (solve_instrumented's
-        timer)."""
+        timer); `rho_backends` lists the backends whose adapted rho is
+        carried into the next QP."""
         phase = phase or (lambda name: contextlib.nullcontext())
         omegas = self._cast_omegas(omegas)
         alpha = torch.as_tensor(alpha, dtype=self.dtype, device=self.device)
@@ -382,7 +389,7 @@ class SAATrajOpt:
             qp_iters.append(sol.iters)
             qp_solved.append(sol.solved)
             us_hist.append(us)
-            rho = (sol.rho.to(self.dtype) if self.qp_backend in _RHO_BACKENDS
+            rho = (sol.rho.to(self.dtype) if self.qp_backend in rho_backends
                    else warm[2])
             warm = (sol.x, sol.y, rho)
             us_prev = us
@@ -444,7 +451,8 @@ class SAATrajOpt:
         if checkpoint_path is not None:
             start_iter, resume = self._load_checkpoint(checkpoint_path)
             ckpt = (checkpoint_path, 1)
-        res = self._solve_core(omegas, alpha, M, start_iter, ckpt, resume, phase)
+        res = self._solve_core(omegas, alpha, M, start_iter, ckpt, resume,
+                               phase, rho_backends=_RHO_BACKENDS_INSTRUMENTED)
         define_times = np.array(times["define"])
         solve_times = np.array(times["solve"])
         return {

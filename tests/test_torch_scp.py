@@ -120,14 +120,11 @@ def test_admm_scp_float32_m8():
 
 
 def test_backend_choices_raise():
-    """Deliberate differences from the JAX driver: the fused backends
-    refuse a dtype other than float32 instead of running the XLA ADMM, and
-    the one backend not ported yet ('admm-ds') raises."""
+    """A deliberate difference from the JAX driver: the fused backends
+    refuse a dtype other than float32 instead of running the XLA ADMM."""
     for name in ("_admm-pallas", "_admm-pallas-f"):
         with pytest.raises(ValueError, match="float32"):
             _port(8, 1, qp_backend=name)
-    with pytest.raises(ValueError, match="not ported"):
-        _port(8, 1, qp_backend="admm-ds")
 
 
 def test_card_is_the_default_device():
