@@ -40,9 +40,9 @@ Phases, in order (each prints its seconds; any failure exits non-zero):
      '_admm-pallas' (define/solve split, MC check); at M=50 a checkpoint at
      iteration 4 resumed to 15 against the uninterrupted run, and
      solve_many over 2 instances against per-instance solve; the
-     drone_risk and driving CLIs (M=50, 1 repeat, 15 SCP iterations) into
-     a temporary directory: the reference file layout, median final
-     L2 < 1e-2, SAA safer than the baseline.
+     drone_risk (alpha 0.1) and driving CLIs (M=50, 1 repeat, 15 SCP
+     iterations) into a temporary directory: the reference file layout,
+     median final L2 < 1e-2, SAA safer than the baseline.
   9. the interior-point family, which reaches neither kernel (both counts
      held to 0 around each solve): the IPM on phase 1's M=1000 QP in
      float64 (certified, its KKT residuals, its objective against f64
@@ -63,12 +63,29 @@ Phases, in order (each prints its seconds; any failure exits non-zero):
      iterations: QPs certified, L2 to the golden (MC safe >= 1 - alpha
      once the depth reaches 15); (c) the Gaussian car at CarScenario():
      float64 'ipm' at alpha 0.1, 25 SCP iterations, held to
-     tests/test_gaussian.py:47-62; float32 'admm-ir' at alpha 0.05, 20
-     iterations, every QP certified and within 1e-3 relative L2 of float64;
+     tests/test_gaussian.py:47-62; float32 'admm-ir' at alpha 0.05,
+     GAUSS_PAIR_ITERS iterations, every QP certified and within 1e-3
+     relative L2 of float64 'ipm' at the same depth;
      the Gaussian plan's MC safe fraction and cost on the car's 10000
      samples; (d) in phase 8, the driving_gaussian CLI writes its result
      into the car CLI's results directory first, and the driving CLI's
      Monte-Carlo report reads it.
+ 11. the NLP family (ops/nlp_ipm.py), which reaches neither kernel (both
+     counts held to 0 around each run): (a) the hopper CLI at
+     HopperScenario() (M=30, 400 variables, a 1945^2 KKT matrix), float64,
+     alpha 0.3 (its figure where matplotlib is installed): the damped
+     cold baseline solved at jump > 0.9, the warm SAA phase solved at
+     jump > 0.3, both files in the JAX layout, MC on 10000 fresh fields
+     (safe fractions and the SAA plan's AVaR reported); ms (eager and
+     replayed from CUDA graphs) and kernels per barrier iteration; (b) the
+     hopper in float32 with three Ruiz sweeps: the cold damped baseline
+     within 0.11 of jump 1.053, the SAA phase warm-started from
+     tests/fixtures/hopper_base_Z.npy solved at jump > 0.3; (c) in phase
+     8, after the drone_risk CLI and into its directory, the
+     drone_gaussian CLI at alpha 0.1, float64, tol 1e-6, cap 1500: solved,
+     dual <= 1e-5, sum of the risk allocations <= alpha + 1e-6; (d) the
+     terrains_gaussian CLI's fields (and its figure where matplotlib is
+     installed).
 Then one JSON line describing each kernel (with its launches on every path
 above), the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}.
@@ -99,6 +116,17 @@ DS_ITERS, DS_SCP_ITERS = 200, 2
 # depth cut in phase 9 to keep the script near 700 s once phase 10 came in:
 # the '_hybrid-prox' SCP's iterations (3 before)
 HYBRID_PROX_ITERS = 2
+# the drone_risk CLI's alpha in phase 8, which the drone_gaussian CLI (phase
+# 11(c)) warm-starts from: 0.1, the alpha of tests/test_gaussian.py:124-152.
+# At 0.2 the Gaussian NLP does not certify within its 1500-iteration cap
+# from such a plan, in the JAX package either (prim ~4e-4, dual ~6)
+DRONE_CLI_ALPHA = 0.1
+# depth cut in phase 10(c) to make room for phase 11: the SCP iterations of
+# the alpha 0.05 Gaussian car pair, float32 'admm-ir' against float64 'ipm'
+# (20 before). The two plans' gap falls with the depth: 3.6e-3 at 8 (past
+# the 1e-3 check, on the card and on the host alike), 1.4e-4 at 11, 3.7e-5
+# at 12, 1.1e-6 at 20 (host runs)
+GAUSS_PAIR_ITERS = 12
 # Kernel vs plain after 100 iterations, |a - b| <= TOL * (1 + |b|) per
 # element: both run float32 with sums taken in different orders (blocked
 # partials in the kernel, cuBLAS/ATen reductions in the plain version), and
@@ -923,14 +951,20 @@ def run_cli(main, argv, dev):
 
 def phase8_clis(torch, dev):
     """drone_risk.main and driving.main into a temporary directory at M=50
-    (their default), with --repeats 1 and 15 SCP iterations (alphas 0.2
-    and 0.1): the reference file layout, median final L2 < 1e-2, and the
-    drone SAA safe(mean) above the baseline's safe fraction."""
+    (their default), with --repeats 1 and 15 SCP iterations (alpha 0.1
+    each): the reference file layout, median final L2 < 1e-2, and the
+    drone SAA safe(mean) above the baseline's safe fraction. Between them,
+    phase 11(c): the drone_gaussian CLI from the drone_risk CLI's SAA
+    plan; returns its stats."""
     import tempfile
 
     with tempfile.TemporaryDirectory() as tmp:
         drone_cli(dev, f"{tmp}/drone")
+        t = time.perf_counter()
+        drone_gauss = phase11_drone_gaussian_cli(torch, dev, f"{tmp}/drone")
+        log(f"[phase 11(c), in phase 8] {time.perf_counter() - t:.2f} s")
         car_cli(dev, f"{tmp}/car")
+    return drone_gauss
 
 
 def drone_cli(dev, rdir):
@@ -939,12 +973,13 @@ def drone_cli(dev, rdir):
     from riskaversetrajopt_torch.experiments import common, drone_risk
 
     out, wall = run_cli(drone_risk.main, [
-        "--repeats", "1", "--alphas", "0.2", "--scp-iters", str(SCP_ITERS),
-        "--results", rdir], dev)
+        "--repeats", "1", "--alphas", str(DRONE_CLI_ALPHA), "--scp-iters",
+        str(SCP_ITERS), "--results", rdir], dev)
     files = sorted(p.name for p in Path(rdir).iterdir())
-    want = ["drone_alpha=0.2_repeat=0.npy", "drone_baseline.npy"]
+    want = [f"drone_alpha={DRONE_CLI_ALPHA}_repeat=0.npy", "drone_baseline.npy"]
     l2 = float(re.search(r"final L2 \(median over sweep\): (\S+)", out)[1])
-    saa = float(re.search(r"alpha=0.2: safe\(mean\)=(\S+)", out)[1])
+    saa = float(re.search(rf"alpha={DRONE_CLI_ALPHA}: safe\(mean\)=(\S+)",
+                          out)[1])
     base = float(re.search(r"baseline: safe=(\S+)", out)[1])
     stages = re.findall(r"stage wall time (\S+) s", out)
     log(f"drone_risk CLI: {wall:.2f} s (stages SAA / baseline / MC "
@@ -1422,8 +1457,9 @@ def phase10_gaussian(torch, dev):
     GAUSS_ITERS SCP iterations, held to tests/test_gaussian.py:47-62 (every
     QP converged, last L2 < 1e-4, the risk budget and floor, padded
     separation <= 1e-6, mean final state at the goal within 1e-5); float32
-    'admm-ir', alpha 0.05, 20 iterations, every QP certified, within 1e-3
-    relative L2 of float64 'ipm''s at alpha 0.05
+    'admm-ir', alpha 0.05, GAUSS_PAIR_ITERS iterations, every QP
+    certified, within 1e-3 relative L2 of float64 'ipm''s at alpha 0.05 and
+    the same depth
     (tests/test_f32_gaussian.py:92-117); both plans' MC safe fraction and
     cost on phase 7's 10000 car samples (seed 99), reported."""
     from riskaversetrajopt_torch.core.config import CarScenario
@@ -1433,8 +1469,8 @@ def phase10_gaussian(torch, dev):
     mc_om = car.sample(torch.Generator().manual_seed(99), 10000)
     out = {}
     runs = (("f64_ipm_a0.1", 0.1, GAUSS_ITERS, torch.float64),
-            ("f64_ipm_a0.05", 0.05, 20, torch.float64),
-            ("f32_admm-ir_a0.05", 0.05, 20, torch.float32))
+            ("f64_ipm_a0.05", 0.05, GAUSS_PAIR_ITERS, torch.float64),
+            ("f32_admm-ir_a0.05", 0.05, GAUSS_PAIR_ITERS, torch.float32))
     res = {}
     for name, alpha, iters, dtype in runs:
         p = GaussianCarPlanner(CarScenario(), alpha=alpha, num_scp_iters=iters,
@@ -1486,6 +1522,271 @@ def phase10(torch, dev, problem, opt64, gold):
     out["ds_scp_m1000"] = phase10_ds_scp(torch, dev, opt64, gold, mc_om)
     out["gaussian_car"] = phase10_gaussian(torch, dev)
     log("phase 10 summary " + json.dumps(out))
+    return out
+
+
+HOPPER_MC_M = 10000  # the hopper CLI's default Monte-Carlo fields
+HOPPER_ALPHA = 0.3
+
+
+def nlp_per_iteration(torch, dev, solve, profile_iters, eager_iters=5,
+                      graph_iters=100):
+    """The barrier iteration's cost, from runs of solve(n, graphs) with n
+    iterations, each less an n = 0 run (the set-up): kernels per iteration
+    (eager, profile_iters iterations under torch.profiler; none with
+    profile_iters 0), ms per iteration eager (eager_iters) and replayed
+    from CUDA graphs (graph_iters), and the seconds the graphs' capture
+    adds to the set-up."""
+    out = {}
+    if profile_iters:
+        counts = [launches_per_call(torch, lambda: solve(n, False))
+                  for n in (0, profile_iters)]
+        out["launch_calls"] = (counts[1][0] - counts[0][0]) / profile_iters
+        out["device_kernels"] = (
+            None if None in (counts[0][1], counts[1][1])
+            else (counts[1][1] - counts[0][1]) / profile_iters)
+    setup = {}
+    for graphs, iters in ((False, eager_iters), (True, graph_iters)):
+        walls = [timed(torch, dev, lambda: solve(n, graphs))[1]
+                 for n in (0, iters)]
+        setup[graphs] = walls[0]
+        out["ms_graphs" if graphs else "ms_eager"] = (
+            (walls[1] - walls[0]) * 1e3 / iters)
+    out["capture_s"] = setup[True] - setup[False]
+    return out
+
+
+def in_dir(path, fn):
+    """fn() with the working directory set to path (the CLIs write their
+    figures under ./figures)."""
+    import os
+
+    old = os.getcwd()
+    os.chdir(path)
+    try:
+        return fn()
+    finally:
+        os.chdir(old)
+
+
+def phase11_hopper_cli(torch, dev, tmp):
+    """(a) The hopper CLI at HopperScenario() (M=30, S=30, 400 variables, a
+    1945^2 KKT matrix), float64, --alphas 0.3, with the figure where this
+    host has matplotlib: the damped cold baseline solved at jump > 0.9, the
+    warm SAA phase solved at jump > 0.3, both files in the JAX layout, both
+    MC lines from HOPPER_MC_M fresh fields with finite values; iterations,
+    ms and kernels per barrier iteration."""
+    import re
+
+    import numpy as np
+
+    from riskaversetrajopt_torch.experiments import hopper
+    from riskaversetrajopt_torch.models.hopper import HopperModel
+    from riskaversetrajopt_torch.ops.nlp_ipm import NLPConfig, solve_nlp
+
+    rdir = f"{tmp}/hopper"
+    plot = ["--plot"] if have_matplotlib() else []
+    (out, wall), _, _ = no_kernel_run(torch, dev, lambda: in_dir(
+        tmp, lambda: run_cli(hopper.main, [
+            "--alphas", str(HOPPER_ALPHA), "--mc-M", str(HOPPER_MC_M),
+            "--results", rdir] + plot, dev)), "hopper CLI")
+    solves = re.findall(r"iters=(\d+) solved=(\w+) prim=(\S+) dual=(\S+) "
+                        r"jumped=(\S+)", out)
+    stages = [float(v) for v in re.findall(r"stage wall time (\S+) s", out)]
+    mc_b = re.search(r"baseline: jumped=\S+ safe=(\S+)", out)
+    mc_s = re.search(rf"alpha={HOPPER_ALPHA}: jumped=\S+ safe=(\S+) "
+                     r"avar=(\S+)", out)
+    if len(solves) != 2 or len(stages) != 3 or not (mc_b and mc_s):
+        raise AssertionError("hopper CLI: missing solve, stage or MC lines")
+    st = {}
+    for name, (iters, solved, prim, dual, jump), secs in zip(
+            ("baseline", "saa"), solves, stages):
+        st[name] = {"iters": int(iters), "solved": solved == "True",
+                    "prim": float(prim), "dual": float(dual),
+                    "jump": float(jump), "wall_s": secs,
+                    "ms_per_iter": secs * 1e3 / max(int(iters), 1)}
+    st["mc_wall_s"] = stages[2]
+    st["mc_safe_baseline"] = float(mc_b[1])
+    st["mc_safe_saa"], st["mc_avar_saa"] = float(mc_s[1]), float(mc_s[2])
+    for f in ("hopper_base_results.npy",
+              f"hopper_saa_alpha={HOPPER_ALPHA}_results.npy"):
+        xs, us = hopper.load_xs_us(f"{rdir}/{f}")
+        if xs.shape != (31, 8) or us.shape != (30, 4) or not (
+                np.isfinite(xs).all() and np.isfinite(us).all()):
+            raise AssertionError(f"{f}: {xs.shape}, {us.shape}")
+    if plot and not Path(tmp, "figures", "hopper_trajectories.png").is_file():
+        raise AssertionError("hopper CLI: no figure")
+
+    # the barrier iteration: the warm SAA solve from the baseline
+    model = HopperModel(device=dev)
+    xs, us = hopper.load_xs_us(f"{rdir}/hopper_base_results.npy")
+    Z0 = torch.zeros(model.num_vars, dtype=torch.float64, device=dev)
+    Z0[: xs.size] = torch.as_tensor(xs.reshape(-1))
+    Z0[xs.size : xs.size + us.size] = torch.as_tensor(us.reshape(-1))
+    field = model.sample_friction(torch.Generator().manual_seed(1), model.M)
+    nlp = model.make_nlp(field, "saa", HOPPER_ALPHA)
+    st["per_iter"] = nlp_per_iteration(torch, dev, lambda n, graphs: (
+        solve_nlp(*nlp, Z0, NLPConfig(tol=1e-3, max_iter=n),
+                  cuda_graphs=graphs)), 3, eager_iters=10)
+    log(f"hopper CLI (f64, alpha {HOPPER_ALPHA}): {wall:.2f} s; baseline "
+        f"{st['baseline']}; SAA {st['saa']}; MC ({HOPPER_MC_M} fields, "
+        f"{stages[2]:.2f} s) safe baseline {st['mc_safe_baseline']:.4f}, "
+        f"SAA {st['mc_safe_saa']:.4f}, SAA AVaR {st['mc_avar_saa']:.5f}; "
+        f"the SAA barrier iteration {st['per_iter']}")
+    b, a = st["baseline"], st["saa"]
+    if not (b["solved"] and b["jump"] > 0.9 and a["solved"]
+            and a["jump"] > 0.3 and np.isfinite(st["mc_avar_saa"])):
+        raise AssertionError(f"hopper CLI: {st}")
+    return st
+
+
+def phase11_hopper_f32(torch, dev):
+    """(b) The hopper in float32 through the model API with three Ruiz
+    sweeps: the cold damped baseline (50 / 0.1, tol 1e-4, cap 120) solved
+    within 0.11 of the float64 basin's jump 1.053
+    (tests/test_hopper.py:185-211); the SAA phase at alpha 0.3 warm-started
+    from tests/fixtures/hopper_base_Z.npy (tol 1e-3, cap 100) solved at
+    jump > 0.3 (tests/test_hopper.py:214-241)."""
+    import numpy as np
+
+    from riskaversetrajopt_torch.models.hopper import HopperModel
+    from riskaversetrajopt_torch.ops.nlp_ipm import NLPConfig, solve_nlp
+
+    model = HopperModel(device=dev)
+    f32 = torch.float32
+    runs = {
+        "baseline": (model.sample_friction(torch.Generator().manual_seed(1),
+                                           model.M, "baseline"),
+                     "baseline", 0.1, model.initial_guess(model.M, f32),
+                     NLPConfig(tol=1e-4, max_iter=120, kkt_ruiz_iters=3,
+                               damp_iters=50, damp_max=0.1)),
+        "saa": (model.sample_friction(torch.Generator().manual_seed(0),
+                                      model.M),
+                "saa", HOPPER_ALPHA,
+                torch.as_tensor(np.load(FIXTURES / "hopper_base_Z.npy"),
+                                dtype=f32, device=dev),
+                NLPConfig(tol=1e-3, max_iter=100, kkt_ruiz_iters=3)),
+    }
+    st = {}
+    for name, (field, method, alpha, Z0, cfg) in runs.items():
+        f, g, gL, gU, n_eq, xL, xU = model.make_nlp(field, method, alpha)
+        res, wall, _ = no_kernel_run(torch, dev, lambda: solve_nlp(
+            f, g, gL, gU, n_eq, xL, xU, Z0, cfg), f"f32 hopper {name}")
+        xs = model.split_z(res.Z)[0]
+        st[name] = {"iters": res.iters, "solved": res.solved,
+                    "prim": float(res.prim_res), "dual": float(res.dual_res),
+                    "jump": float(xs[-1, 0]), "wall_s": wall,
+                    "ms_per_iter": wall * 1e3 / max(res.iters, 1),
+                    "finite": bool(torch.isfinite(res.Z).all())}
+        log(f"f32 hopper {name}: {st[name]}")
+    b, a = st["baseline"], st["saa"]
+    if not (b["solved"] and abs(b["jump"] - 1.053) < 0.11 and a["solved"]
+            and a["jump"] > 0.3 and b["finite"] and a["finite"]):
+        raise AssertionError(f"f32 hopper: {st}")
+    return st
+
+
+def phase11_drone_gaussian_cli(torch, dev, rdir):
+    """(c) The drone_gaussian CLI at alpha DRONE_CLI_ALPHA, float64, tol
+    1e-6, cap 1500, warm-started from the drone_risk CLI's SAA file in
+    rdir: solved, dual <= 1e-5, sum of the risk allocations <= alpha +
+    1e-6 (tests/test_gaussian.py:124-152); its file read back; iterations,
+    wall time, ms per barrier iteration eager and replayed (its ~5000
+    kernels per eager iteration are not profiled here: the profiler's
+    trace of them took ~40 s of the script)."""
+    import re
+
+    import numpy as np
+
+    from riskaversetrajopt_torch.core.config import DroneScenario
+    from riskaversetrajopt_torch.experiments import common, drone_gaussian
+    from riskaversetrajopt_torch.models.drone_gaussian import (
+        GaussianDronePlanner,
+    )
+    from riskaversetrajopt_torch.ops.nlp_ipm import NLPConfig, solve_nlp
+
+    (out, wall), _, _ = no_kernel_run(torch, dev, lambda: run_cli(
+        drone_gaussian.main, ["--alphas", str(DRONE_CLI_ALPHA), "--tol", "1e-6",
+                              "--max-iter", "1500", "--results", rdir], dev),
+        "drone_gaussian CLI")
+    m = re.search(r"iters=(\d+) solved=(\w+) prim=(\S+) dual=(\S+) "
+                  r"sum\(alphas\)=(\S+)", out)
+    if m is None:
+        raise AssertionError("drone_gaussian CLI: no result line")
+    st = {"iters": int(m[1]), "solved": m[2] == "True", "prim": float(m[3]),
+          "dual": float(m[4]), "sum_alphas": float(m[5]), "wall_s": wall,
+          "ms_per_iter": wall * 1e3 / max(int(m[1]), 1)}
+    a = DRONE_CLI_ALPHA
+    us, xs = common.load_traj(f"{rdir}/drone_gaussian_alpha={a}.npy")
+    us_init, _ = common.load_traj(f"{rdir}/drone_alpha={a}_repeat=0.npy")
+    p = GaussianDronePlanner(DroneScenario(), alpha=DRONE_CLI_ALPHA, device=dev)
+    Z0 = p.initial_guess(torch.as_tensor(us_init))
+    st["per_iter"] = nlp_per_iteration(torch, dev, lambda n, graphs: (
+        solve_nlp(p.f, p.g, *p.bounds(), Z0, NLPConfig(tol=1e-6, max_iter=n),
+                  cuda_graphs=graphs)), 0)
+    log(f"drone_gaussian CLI (f64, alpha {DRONE_CLI_ALPHA}): {st}")
+    if not (st["solved"] and st["dual"] <= 1e-5
+            and st["sum_alphas"] <= DRONE_CLI_ALPHA + 1e-6
+            and us.shape == (20, 3) and xs.shape == (21, 6)
+            and np.isfinite(xs).all()):
+        raise AssertionError(f"drone_gaussian CLI: {st}")
+    return st
+
+
+def have_matplotlib():
+    try:
+        import matplotlib  # noqa: F401
+    except ImportError:
+        return False
+    return True
+
+
+def phase11_terrains(torch, dev, tmp):
+    """(d) The terrains_gaussian CLI: its ten fields at 400 positions,
+    finite and within the feature bound of mu_nom; its figure where this
+    host has matplotlib (the CLI draws it with matplotlib, which the card's
+    host may lack: then only the fields are computed and held)."""
+    import math
+
+    from riskaversetrajopt_torch.experiments import terrains_gaussian
+    from riskaversetrajopt_torch.models.hopper import HopperModel
+
+    model = HopperModel(device=dev)
+    s = model.scn
+    (pxs, mus), wall, _ = no_kernel_run(
+        torch, dev, lambda: terrains_gaussian.friction_fields(model, 10, 1),
+        "terrains_gaussian fields")
+    bound = s.num_mu_features * s.mu_intensity_scale * math.sqrt(
+        2.0 / s.num_mu_features)
+    dev_max = float(torch.amax(torch.abs(mus - s.mu_nom)))
+    st = {"fields_wall_s": wall, "max_abs_mu_minus_nom": dev_max,
+          "figure": have_matplotlib()}
+    if not (mus.shape == (10, 400) and bool(torch.isfinite(mus).all())
+            and dev_max <= bound):
+        raise AssertionError(f"terrains_gaussian fields: {st}")
+    if st["figure"]:
+        (_, st["cli_wall_s"]), _, _ = no_kernel_run(torch, dev, lambda: in_dir(
+            tmp, lambda: run_cli(terrains_gaussian.main, [], dev)),
+            "terrains_gaussian CLI")
+        if not Path(tmp, "figures", "hopper_friction_fields.png").is_file():
+            raise AssertionError("terrains_gaussian CLI: no figure")
+    log(f"terrains_gaussian: {st} (figure drawn only where matplotlib is "
+        f"installed)")
+    return st
+
+
+def phase11(torch, dev, drone_gauss):
+    """Phase 11: the NLP family on the card; (c) ran inside phase 8's drone
+    directory and its stats come in as drone_gauss."""
+    import tempfile
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        out["hopper_cli"] = phase11_hopper_cli(torch, dev, tmp)
+        out["hopper_f32"] = phase11_hopper_f32(torch, dev)
+        out["drone_gaussian_cli"] = drone_gauss
+        out["terrains_cli"] = phase11_terrains(torch, dev, tmp)
+    log("phase 11 summary " + json.dumps(out))
     return out
 
 
@@ -1547,7 +1848,7 @@ def main():
     paths1["drone M=1000 solve_instrumented (phase 8)"] = n_instr
     b1["define_solve_split_m1000"] = split
     paths1.update(phase8_resume_and_many(torch, dev))
-    phase8_clis(torch, dev)
+    drone_gauss = phase8_clis(torch, dev)
     log(f"[phase 8] {time.perf_counter() - t:.2f} s")
     t = time.perf_counter()
     ipm_family = phase9(torch, dev, opt64, gold)
@@ -1562,6 +1863,13 @@ def main():
     where = "drone M=1000 'admm-ds' solve (phase 10)"
     paths1[where], paths2[where] = ds_gauss["ds_scp_m1000"]["kernel_launches"]
     log(f"[phase 10] {time.perf_counter() - t:.2f} s")
+    t = time.perf_counter()
+    phase11(torch, dev, drone_gauss)
+    # nor do this slice's (no_kernel_run holds them to 0)
+    for where in ("hopper CLI (phase 11)", "f32 hopper (phase 11)",
+                  "drone_gaussian CLI (phase 11)"):
+        paths1[where] = paths2[where] = 0
+    log(f"[phase 11] {time.perf_counter() - t:.2f} s")
     b1["launches_by_path"], b2["launches_by_path"] = paths1, paths2
     for k in (b1, b2):
         k["card"] = smi

@@ -1,5 +1,5 @@
-"""Typed configuration for the drone and car scenarios, the SCP driver and
-the ADMM solver.
+"""Typed configuration for the drone, car and hopper scenarios, the SCP
+driver and the ADMM solver.
 
 Field for field the dataclasses of ``riskaversetrajopt_tpu/core/config.py``
 (same names, same defaults; the comments there explain each knob). Array
@@ -181,3 +181,46 @@ class CarScenario:
     def variance_ped_initial_state(self) -> torch.Tensor:
         return torch.diag(
             torch.tensor([1e-1, 1e-1, 1e-4, 1e-4], dtype=torch.float64) ** 2)
+
+
+@dataclass(frozen=True)
+class HopperScenario:
+    """2-D single-leg hopper with contact-implicit direct transcription
+    (hopper/hopper.py:43-89; dynamics credited there to
+    dojo-sim/ContactImplicitMPC.jl)."""
+
+    n_x: int = 8
+    n_u: int = 4
+    S: int = 30
+    M: int = 30
+    T: float = 2.0
+    time_jump: int = 10
+    time_land: int = 20
+    u_max: float = 1000.0
+    mass_body: float = 3.0
+    mass_leg: float = 0.3
+    inertia_body: float = 0.75
+    inertia_leg: float = 0.075
+    gravity: float = 9.81
+    max_contact_force: float = 1000.0
+    mu_nom: float = 0.10
+    num_mu_features: int = 30
+    mu_intensity_scale: float = 0.025
+
+    @property
+    def dt(self) -> float:
+        return self.T / self.S
+
+    @property
+    def num_vars(self) -> int:
+        return (self.S + 1) * self.n_x + self.S * self.n_u + self.M + 2
+
+    @property
+    def state_initial(self) -> torch.Tensor:
+        return torch.tensor([1e-6, 1.0, -1e-6, 1.0, 0.0, 0.0, 0.0, 0.0],
+                            dtype=torch.float64) + 2e-7
+
+    @property
+    def state_final(self) -> torch.Tensor:
+        return torch.tensor([0.15, 1.0, -1e-6, 1.0, 0.0, 0.0, 0.0, 0.0],
+                            dtype=torch.float64) + 2e-7

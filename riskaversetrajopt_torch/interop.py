@@ -27,6 +27,7 @@ import torch
 
 from riskaversetrajopt_torch.models.car import CarOmega
 from riskaversetrajopt_torch.models.drone import DroneOmega
+from riskaversetrajopt_torch.models.hopper import FrictionField
 from riskaversetrajopt_torch.ops.admm import Scaling
 from riskaversetrajopt_torch.ops.cuda.saa_admm import ScaledSAA, ScaledState
 from riskaversetrajopt_torch.ops.cuda.saa_admm_f import ScaledSAAF, ScaledStateF
@@ -53,6 +54,10 @@ def drone_omega(om, device="cpu", dtype=torch.float64) -> DroneOmega:
 
 def car_omega(om, device="cpu", dtype=torch.float64) -> CarOmega:
     return _convert(om, CarOmega, device, dtype)
+
+
+def friction_field(field, device="cpu", dtype=torch.float64) -> FrictionField:
+    return _convert(field, FrictionField, device, dtype)
 
 
 def saa_qp_data(data, device="cpu", dtype=torch.float64) -> SAAQPData:

@@ -286,3 +286,39 @@ def test_kernel_matches_plain_on_the_car(kernel, scp_iter):
     assert err <= 2e-2, err
     err = kc.epigraph_err(out, ref)
     assert err <= kc.EPIGRAPH_TOL, err
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model", ["hopper", "drone_gaussian"])
+def test_nlp_cuda_graph_replay_is_the_eager_solve(model):
+    """ops/nlp_ipm.solve_nlp on the card replays CUDA graphs of its
+    evaluations (no hand-written kernel: the same torch.func kernels): 8
+    barrier iterations with the graphs equal the eager ones bit for bit,
+    and the host's float64 solve within 1e-9 relative."""
+    from riskaversetrajopt_torch.core.config import HopperScenario
+    from riskaversetrajopt_torch.models.drone_gaussian import (
+        GaussianDronePlanner,
+    )
+    from riskaversetrajopt_torch.models.hopper import HopperModel
+    from riskaversetrajopt_torch.ops.nlp_ipm import NLPConfig, solve_nlp
+
+    dev = _cuda()
+
+    def problem(device):
+        if model == "hopper":
+            m = HopperModel(HopperScenario(), device=device)
+            field = m.sample_friction(torch.Generator().manual_seed(0), 4)
+            return m.make_nlp(field, "saa", 0.1) + (m.initial_guess(4),)
+        p = GaussianDronePlanner(DroneScenario(), alpha=0.1, device=device)
+        us = torch.full((p.S, p.n_u), 1e-2, dtype=torch.float64)
+        return (p.f, p.g) + p.bounds() + (p.initial_guess(us),)
+
+    cfg = NLPConfig(tol=0.0, max_iter=8)
+    eager, graphed = (solve_nlp(*problem(dev), cfg, cuda_graphs=g)
+                      for g in (False, True))
+    host = solve_nlp(*problem("cpu"), cfg)
+    assert eager.iters == graphed.iters == host.iters == 8
+    assert torch.equal(eager.Z, graphed.Z)
+    Zh = host.Z.to(dev)
+    assert float(torch.linalg.norm(graphed.Z - Zh)) <= 1e-9 * float(
+        torch.linalg.norm(Zh))
