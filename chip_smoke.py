@@ -1,7 +1,14 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (riskaversetrajopt_torch) on one GPU.
 
-Phases, in order (each prints its seconds; any failure exits non-zero):
+Phases (each prints its seconds; any failure exits non-zero). The main
+process runs phases 0, 1, 4, 6 and 7's kernel checks alone on the card, so
+that the kernels are timed on a quiet card; then three phase groups that
+reach neither kernel run beside it, each in a process of its own (this
+script run as `--group NAME`): "golden" (phase 2, then 12(a) from its
+plan), "ipm" (phase 9) and "ds" (phase 10), while the main process runs
+phases 3, 5, 7's SCPs, 8, 11 and 12(b-d). Each group's log is printed when
+it ends; a group that fails, or outlives GROUP_TIMEOUT, fails the script.
   0. card name and power limit, torch/CUDA versions; TF32 off; build the
      hand-written kernels csrc/saa_admm.cu (B1) and csrc/saa_admm_f.cu (B2)
      for sm_90a, one nvcc each, both at once.
@@ -36,6 +43,10 @@ Phases, in order (each prints its seconds; any failure exits non-zero):
      tests/test_scp_car.py's contract (the final L2 only for f64), with MC
      on 10000 fresh samples. Each kernel's count is set to 0 just before
      its car solve and read just after: the "launches" of the kernels line.
+     The free-row form of B1 and B2 ("highest", "high") at scp_iter 0 and,
+     forced, at 3: one kernel iteration from built states against the
+     float64 plain iteration on the CVaR row (kernel_checks.free_row_errs,
+     <= FREE_ROW_TOL), the check that sees the branch's beta c2 terms.
   8. the entry points: solve_instrumented on the drone at M=1000 through
      '_admm-pallas' (define/solve split, MC check); at M=50 a checkpoint at
      iteration 4 resumed to 15 against the uninterrupted run, and
@@ -86,6 +97,17 @@ Phases, in order (each prints its seconds; any failure exits non-zero):
      dual <= 1e-5, sum of the risk allocations <= alpha + 1e-6; (d) the
      terrains_gaussian CLI's fields (and its figure where matplotlib is
      installed).
+ 12. Anderson acceleration, the sample-sharded solve, the native QP oracle
+     and torch_entry.py, which reach neither kernel (both counts held to 0
+     around each run): (a) the float64 'admm' QP of phase 2's scp_iter 3
+     at depth 0 and AA_DEPTH (iterations, ms, residuals, objective gap);
+     (b) the sharded float64 'admm' drone SCP at M=1000 on a one-rank NCCL
+     group against the unsharded one (bit for bit expected), and phase 1's
+     QP on two ranks sharing the card (gloo with CUDA tensors, this script
+     run as `--shard-worker`), 500 samples each, against the unsharded
+     solve to 1e-8; collectives per ADMM iteration; (c) the native oracle
+     (g++-built native/qp_admm.cpp) against solve_dense_qp on one dense QP;
+     (d) torch_entry.entry() and dryrun_multichip over the host's cards.
 Then one JSON line describing each kernel (with its launches on every path
 above), the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}.
@@ -109,10 +131,12 @@ M_STREAM = 2000  # beyond shared-memory residency of the G slab
 CAR_M, CAR_ALPHA = 50, 0.1  # the car CLI's defaults (CarScenario().M)
 GAUSS_ITERS = 25  # the Gaussian car's SCP depth (tests/test_gaussian.py:48)
 PRECISIONS = ("highest", "high", "default")
-# phase 10: ADMM iterations of the ds-vs-float64 tracking check, and the SCP
+# phase 10: ADMM iterations of the ds-vs-float64 tracking check (cut from
+# 200 to make room for phase 12: the ds iterate lay 8.8e-3 of the float32
+# one's distance from float64 there, against the 0.1 limit), and the SCP
 # depth of the 'admm-ds' drone solve (cut from 15: the third QP runs to the
 # 45000 cap in the JAX bench's ds leg, at several ms per ds iteration)
-DS_ITERS, DS_SCP_ITERS = 200, 2
+DS_ITERS, DS_SCP_ITERS = 150, 2
 # depth cut in phase 9 to keep the script near 700 s once phase 10 came in:
 # the '_hybrid-prox' SCP's iterations (3 before)
 HYBRID_PROX_ITERS = 2
@@ -121,12 +145,13 @@ HYBRID_PROX_ITERS = 2
 # At 0.2 the Gaussian NLP does not certify within its 1500-iteration cap
 # from such a plan, in the JAX package either (prim ~4e-4, dual ~6)
 DRONE_CLI_ALPHA = 0.1
-# depth cut in phase 10(c) to make room for phase 11: the SCP iterations of
-# the alpha 0.05 Gaussian car pair, float32 'admm-ir' against float64 'ipm'
-# (20 before). The two plans' gap falls with the depth: 3.6e-3 at 8 (past
-# the 1e-3 check, on the card and on the host alike), 1.4e-4 at 11, 3.7e-5
-# at 12, 1.1e-6 at 20 (host runs)
-GAUSS_PAIR_ITERS = 12
+# depth cut in phase 10(c) to make room for phases 11 and 12: the SCP
+# iterations of the alpha 0.05 Gaussian car pair, float32 'admm-ir' against
+# float64 'ipm' (20 at first, then 12). The two plans' gap falls
+# with the depth: 3.6e-3 at 8 (past the 1e-3 check, on the card and on the
+# host alike), 5.2e-4 at 10, 1.4e-4 at 11, 3.7e-5 at 12, 1.1e-6 at 20 (host
+# runs)
+GAUSS_PAIR_ITERS = 11
 # Kernel vs plain after 100 iterations, |a - b| <= TOL * (1 + |b|) per
 # element: both run float32 with sums taken in different orders (blocked
 # partials in the kernel, cuBLAS/ATen reductions in the plain version), and
@@ -404,28 +429,39 @@ def phase1_stream(torch, dev):
             "max_rel_err": rel, "max_abs_err": abs_, **shape_fields(shape)}
 
 
-def phase2(torch, dev):
-    import numpy as np
-
+def drone64():
+    """The float64 'admm' drone at M=1000 with the golden SCP config."""
     from riskaversetrajopt_torch.core.config import DroneScenario
     from riskaversetrajopt_torch.models.drone import DroneModel
-    from riskaversetrajopt_torch.scp.driver import SAATrajOpt, l2_error_us
+    from riskaversetrajopt_torch.scp.driver import SAATrajOpt
 
-    opt = SAATrajOpt(DroneModel(DroneScenario(M=M)), scp_cfg=golden_scp_config())
+    return SAATrajOpt(DroneModel(DroneScenario(M=M)), scp_cfg=golden_scp_config())
+
+
+def load_gold(torch, dev):
+    import numpy as np
+
+    return torch.from_numpy(
+        np.load(FIXTURES / f"gold_drone_m{M}_a{ALPHA}_seed0_iters{SCP_ITERS}.npy")
+    ).to(dev)
+
+
+def phase2(torch, dev):
+    from riskaversetrajopt_torch.scp.driver import l2_error_us
+
+    opt = drone64()
     om = load_omegas(torch, torch.float64, dev)
     t0 = time.perf_counter()
     res = opt.solve(om, alpha=ALPHA)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    gold = torch.from_numpy(
-        np.load(FIXTURES / f"gold_drone_m{M}_a{ALPHA}_seed0_iters{SCP_ITERS}.npy")
-    ).to(dev)
+    gold = load_gold(torch, dev)
     err = float(l2_error_us(gold, res.us))  # denominator: the golden
     log(f"f64 admm: {wall:.2f} s, relative L2 vs golden {err:.3e}, "
         f"qp_iters {res.qp_iters.tolist()}, qp_solved {res.qp_solved.tolist()}")
     if not err <= 1e-3:
         raise AssertionError(f"f64 'admm' lands {err:.3e} from the golden")
-    return opt, gold
+    return opt, gold, res
 
 
 def fused_scp(torch, dev, opt64, gold, backend, counter):
@@ -694,21 +730,50 @@ def b2_default_steps(torch, pf, s0, d, iters, what):
     return rel, abs_
 
 
+def free_row_check(torch, p, d, what):
+    """The free-row form of B1 and of B2 ("highest", "high") on p with
+    sm_free set: kernel_checks.free_row_errs (one kernel iteration from each
+    built state against the float64 plain iteration, on the CVaR row) at
+    most FREE_ROW_TOL. Returns the readings."""
+    from riskaversetrajopt_torch.ops.cuda import kernel_checks as kc
+    from riskaversetrajopt_torch.ops.cuda import saa_admm as sk
+    from riskaversetrajopt_torch.ops.cuda import saa_admm_f as fk
+
+    p = p._replace(sm_free=torch.tensor(1.0))
+    pf = fk.to_f(p, d)
+    steps = {"b1": lambda s: sk.admm_chunk(p, s, d, 1)}
+    for prec in ("highest", "high"):
+        steps[f"b2_{prec}"] = lambda s, prec=prec: fk.f_to_state(
+            fk.admm_chunk_f(pf, fk.state_to_f(s, d), d, 1, prec), d)
+    out = {}
+    for name, step in steps.items():
+        out[name] = kc.free_row_errs(p, d, step)
+        log(f"{what}, {name} free-row form: CVaR row against float64 "
+            f"{out[name]:.3e} (limit {kc.FREE_ROW_TOL:.0e})")
+        if out[name] > kc.FREE_ROW_TOL:
+            raise AssertionError(f"{what}: {name}'s free-row form reads "
+                                 f"{out[name]:.3e}")
+    return out
+
+
 def phase7_kernels(torch, dev):
     """B1, and B2 at each precision, against their plain versions on the
     car's scaled structure at scp_iter 0 (gated: the y of the samples past
     the third meet the CVaR row alone, sm_free) and 3, in chunks of the
-    solver's sizes; bit for bit on repeat; timed at the car's shape."""
+    solver's sizes; bit for bit on repeat; timed at the car's shape; the
+    free-row form (free_row_check) at scp_iter 0 and, forced, at 3."""
     from riskaversetrajopt_torch.ops.cuda import saa_admm as sk
     from riskaversetrajopt_torch.ops.cuda import saa_admm_f as fk
 
     opt = car_opt(torch)
     om = opt.sample(torch.Generator().manual_seed(0), CAR_M)
-    out = {"b1": {}, "b2": {}}
+    out = {"b1": {}, "b2": {}, "free_row": {}}
     for scp_iter in (0, 3):
         p, d, _, _ = scaled_of(torch, dev, opt, om, CAR_ALPHA, scp_iter)
         if bool(p.sm_free) != (scp_iter == 0):
             raise AssertionError(f"car scp_iter {scp_iter}: sm_free {p.sm_free}")
+        out["free_row"][f"scp_iter_{scp_iter}"] = free_row_check(
+            torch, p, d, f"car scp_iter {scp_iter}")
         s0 = sk.init_scaled_state(p)
         shape = sk.launch_shape(d, dev)
         what = f"B1 car scp_iter {scp_iter}"
@@ -1789,6 +1854,401 @@ def phase11(torch, dev, drone_gauss):
     log("phase 11 summary " + json.dumps(out))
     return out
 
+# phase 12: ADMM iterations of the two-rank QP (a fixed count: phase 1's QP
+# does not certify from a cold start within it); the depth of the one-rank
+# sharded SCP (its two gated iterations and the first past them) and the
+# ADMM cap of its QPs, cut from the driver's 20000 (the third QP runs to
+# that cap, 131 s sharded); the Anderson depth held against the plain
+# iteration and the cap of both runs, cut from 20000 (at 20000 both
+# certify, in 18325 and 8625 iterations, 76 s together on an H100, PERF.md)
+SHARD_QP_ITERS, SHARD_SCP_ITERS, SHARD_SCP_CAP = 200, 3, 1000
+AA_DEPTH, AA_CAP = 5, 3000
+
+
+def phase12_anderson(torch, dev, opt64, res64, cap=AA_CAP):
+    """(a) Anderson acceleration on the float64 'admm' QP of scp_iter 3 of
+    phase 2's SCP (the first post-gating transition: its define phase at
+    phase 2's controls after scp_iter 2, the fixture omegas), from a cold
+    start with the driver's solver config, its cap cut to `cap`, at depth 0
+    and AA_DEPTH: iterations, ms, solved, the residuals reached, the
+    objective gap, ms per iteration."""
+    import dataclasses
+
+    from riskaversetrajopt_torch.ops.saa_qp import build_objective, solve_saa_qp
+
+    om = load_omegas(torch, torch.float64, dev)
+    alpha = torch.tensor(ALPHA, dtype=torch.float64, device=dev)
+    data = opt64._define(res64.us_history[2], om, alpha)
+    st = opt64._static_for(M)
+    p_diag, q = build_objective(st, data)
+    out = {}
+    for depth in (0, AA_DEPTH):
+        cfg = dataclasses.replace(opt64.admm_cfg, anderson_depth=depth,
+                                  max_iter=cap)
+        sol, wall, _ = no_kernel_run(
+            torch, dev, lambda: solve_saa_qp(st, data, 3, cfg),
+            f"'admm' QP at Anderson depth {depth}")
+        if not bool(torch.isfinite(sol.x).all()):
+            raise AssertionError(f"Anderson depth {depth}: x is not finite")
+        obj = float(0.5 * torch.sum(p_diag * sol.x * sol.x) + q @ sol.x)
+        out[f"depth_{depth}"] = {
+            "iters": sol.iters, "ms": wall * 1e3, "solved": sol.solved,
+            "prim_res": float(sol.prim_res), "dual_res": float(sol.dual_res),
+            "objective": obj, "ms_per_iter": wall * 1e3 / max(sol.iters, 1)}
+    o0, o5 = out["depth_0"]["objective"], out[f"depth_{AA_DEPTH}"]["objective"]
+    out["objective_gap"] = abs(o5 - o0) / abs(o0)
+    for k in ("depth_0", f"depth_{AA_DEPTH}"):
+        r = out[k]
+        log(f"f64 'admm' QP of scp_iter 3 (M={M}, cap {cap}), Anderson "
+            f"{k}: {r['iters']} iterations, {r['ms']:.1f} ms "
+            f"({r['ms_per_iter']:.3f} ms each), solved {r['solved']}, prim "
+            f"{r['prim_res']:.3e}, dual {r['dual_res']:.3e}, objective "
+            f"{r['objective']:.10e}")
+    log(f"  objective gap depth {AA_DEPTH} vs 0: {out['objective_gap']:.3e}")
+    return out
+
+
+def phase12_shard_scp(torch, dev, cap=SHARD_SCP_CAP):
+    """(b1) The sample-sharded float64 'admm' drone SCP on a one-rank NCCL
+    group (M=1000, the fixture omegas, the golden config cut to
+    SHARD_SCP_ITERS iterations, the driver's solver config with its cap
+    cut to `cap`) against the unsharded run of the same config; the
+    collectives per ADMM iteration."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from riskaversetrajopt_torch.core.config import DroneScenario, SolverConfig
+    from riskaversetrajopt_torch.models.drone import DroneModel
+    from riskaversetrajopt_torch.parallel import distributed as pd
+    from riskaversetrajopt_torch.scp.driver import SAATrajOpt
+
+    scp = dataclasses.replace(golden_scp_config(), num_iters=SHARD_SCP_ITERS)
+
+    # the driver's default solver config (scp/driver.py), its cap cut
+    admm_cfg = SolverConfig(eps_abs=1e-6, eps_rel=1e-6, max_iter=cap,
+                            polish=False, kkt_refine_iters=1)
+
+    def make(group=None):
+        return SAATrajOpt(DroneModel(DroneScenario(M=M)), scp_cfg=scp,
+                          admm_cfg=admm_cfg, group=group)
+
+    om = load_omegas(torch, torch.float64, dev)
+    ref, t_ref, _ = no_kernel_run(
+        torch, dev, lambda: make().solve(om, alpha=ALPHA), "unsharded SCP")
+    pd.initialize(f"tcp://localhost:{free_port()}", 1, 0, device=dev)
+    try:
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"backend {dist.get_backend()}, not nccl")
+        opt = make(dist.group.WORLD)
+        with pd.audit() as calls:
+            res, wall, _ = no_kernel_run(
+                torch, dev, lambda: opt.solve(om, alpha=ALPHA),
+                "sharded 'admm' SCP")
+    finally:
+        pd.shutdown()
+    bitwise = (torch.equal(res.us_history, ref.us_history)
+               and torch.equal(res.qp_iters, ref.qp_iters))
+    diff = float(torch.max(torch.abs(res.us_history - ref.us_history)))
+    iters = int(res.qp_iters.sum())
+    st = pd.collective_summary(calls, iters)
+    log(f"sharded f64 'admm' SCP, one NCCL rank, M={M}, {SHARD_SCP_ITERS} SCP "
+        f"iterations, ADMM cap {cap}: {wall:.2f} s (unsharded {t_ref:.2f} s), "
+        f"qp_iters {res.qp_iters.tolist()} (unsharded "
+        f"{ref.qp_iters.tolist()}), controls bit for bit the unsharded "
+        f"run's {bitwise} (max |diff| {diff:.3e}); collectives "
+        f"{st['calls']} ({st['calls_per_iter']:.2f} and "
+        f"{st['bytes_per_iter']:.0f} B per ADMM iteration, largest "
+        f"{st['max_elements']} elements)")
+    if diff > 1e-8 * max(1.0, float(torch.max(torch.abs(ref.us_history)))):
+        raise AssertionError(f"sharded SCP {diff:.3e} from the unsharded one")
+    return {"s": wall, "unsharded_s": t_ref, "qp_iters": res.qp_iters.tolist(),
+            "bitwise": bitwise, "max_abs_diff": diff, "collectives": st}
+
+
+def free_port():
+    import socket
+
+    sock = socket.socket()
+    sock.bind(("localhost", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    return port
+
+
+def shard_qp(torch, dev, shard=None, group=None):
+    """Phase 1's QP (a define phase at the initial guess, scp_iter 3, the
+    fixture omegas; under `shard` this process's samples) solved by float64
+    'admm' for SHARD_QP_ITERS iterations (eps 1e-14, polish off, the
+    driver's KKT config). Returns (solution, wall seconds, M_local)."""
+    from riskaversetrajopt_torch.core.config import DroneScenario, SolverConfig
+    from riskaversetrajopt_torch.models.drone import DroneModel
+    from riskaversetrajopt_torch.parallel.distributed import shard_samples_global
+    from riskaversetrajopt_torch.ops.saa_qp import solve_saa_qp
+    from riskaversetrajopt_torch.scp.driver import SAATrajOpt
+
+    opt = SAATrajOpt(DroneModel(DroneScenario(M=M), device=dev),
+                     scp_cfg=golden_scp_config(), device=dev, group=group)
+    om = load_omegas(torch, torch.float64, dev)
+    if shard is not None:
+        om = shard_samples_global(om, M, group)
+    alpha = torch.tensor(ALPHA, dtype=torch.float64, device=dev)
+    data = opt._define(opt.model.initial_guess(), om, alpha, shard)
+    cfg = SolverConfig(eps_abs=1e-14, eps_rel=1e-14, max_iter=SHARD_QP_ITERS,
+                       polish=False, kkt_refine_iters=1)
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    sol = solve_saa_qp(opt._static_for(M), data, 3, cfg, shard=shard)
+    sync(torch, dev)
+    return sol, time.perf_counter() - t0, om[0].shape[0]
+
+
+def shard_worker(argv):
+    """One of phase 12's two ranks on the card (gloo, CUDA tensors): its
+    half of phase 1's QP; prints its full x (y gathered), iterations, time,
+    collectives and both kernels' counts as one JSON line."""
+    import torch
+
+    sys.path.insert(0, str(REPO))
+    from riskaversetrajopt_torch.parallel import distributed as pd
+
+    init, rank = argv[argv.index("--init") + 1], int(argv[argv.index("--rank") + 1])
+    dev = torch.device("cuda:0")
+    pd.initialize(init, 2, rank, backend="gloo", device=dev)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    import torch.distributed as dist
+
+    shard = pd.SampleShard(M, dist.group.WORLD)
+    with pd.audit() as calls:
+        sol, wall, ml = shard_qp(torch, dev, shard, dist.group.WORLD)
+        n = sol.x.shape[0] - ml - 2
+        x = torch.cat([sol.x[:n], shard.gather(sol.x[n:n + ml]),
+                       sol.x[n + ml:]])
+    counts = [c.launches for c in kernel_counters()]
+    print("SHARD_OK " + json.dumps({
+        "rank": rank, "x": x.cpu().tolist(), "iters": sol.iters, "s": wall,
+        "collectives": pd.collective_summary(calls, sol.iters),
+        "kernel_launches": counts}), flush=True)
+    pd.shutdown()
+    return 0
+
+
+def phase12_two_ranks(torch, dev):
+    """(b2) Phase 1's QP at M=1000 on two ranks sharing the card (gloo with
+    CUDA tensors, 500 samples each), SHARD_QP_ITERS iterations, against the
+    unsharded solve of the same count: both ranks bit for bit alike, the
+    state within 1e-8 of (1 + |x|); collectives per iteration."""
+    init = f"tcp://localhost:{free_port()}"
+    procs = [subprocess.Popen(
+        [sys.executable, str(REPO / "chip_smoke.py"), "--shard-worker",
+         "--init", init, "--rank", str(r)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=300)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    res = []
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        line = [ln for ln in out.splitlines() if ln.startswith("SHARD_OK ")]
+        if p.returncode != 0 or not line:
+            raise AssertionError(f"rank {r} failed:\n{out[-3000:]}")
+        res.append(json.loads(line[-1][len("SHARD_OK "):]))
+    if res[0]["x"] != res[1]["x"]:
+        raise AssertionError("the two ranks hold different solutions")
+    if any(any(r["kernel_launches"]) for r in res):
+        raise AssertionError("a rank launched a fused kernel")
+    sol, wall, _ = no_kernel_run(torch, dev, lambda: shard_qp(torch, dev),
+                                 "unsharded QP")
+    x = sol[0].x
+    xs = torch.tensor(res[0]["x"], dtype=torch.float64, device=dev)
+    rel = float(torch.max(torch.abs(xs - x) / (1 + torch.abs(x))))
+    st = res[0]["collectives"]
+    log(f"phase 1's QP on two ranks sharing the card (gloo, {M // 2} samples "
+        f"each), {res[0]['iters']} ADMM iterations: {res[0]['s'] * 1e3:.1f} ms "
+        f"(unsharded {sol[1] * 1e3:.1f} ms), ranks bit for bit alike, "
+        f"max |x - x_unsharded| / (1 + |x|) {rel:.3e}; collectives "
+        f"{st['calls_per_iter']:.2f} and {st['bytes_per_iter']:.0f} B per "
+        f"ADMM iteration, largest {st['max_elements']} elements")
+    if rel > 1e-8:
+        raise AssertionError(f"two-rank QP {rel:.3e} from the unsharded one")
+    return {"ms": res[0]["s"] * 1e3, "unsharded_ms": sol[1] * 1e3,
+            "iters": res[0]["iters"], "max_rel_err": rel, "collectives": st}
+
+
+def phase12_native(torch, dev):
+    """(c) The native QP oracle (native/qp_admm.cpp, built here with g++)
+    on one dense random QP (n=60, m=120, seed 0) against the port's
+    solve_dense_qp in float64 on the card, both at eps 1e-9."""
+    import numpy as np
+
+    from riskaversetrajopt_torch.core.config import SolverConfig
+    from riskaversetrajopt_torch.native import qp as native_qp
+    from riskaversetrajopt_torch.ops.admm import solve_dense_qp
+
+    rng = np.random.default_rng(0)
+    n, m = 60, 120
+    L = rng.standard_normal((n, n))
+    P = L @ L.T + 0.5 * np.eye(n)
+    q = rng.standard_normal(n)
+    A = rng.standard_normal((m, n))
+    x_feas = rng.standard_normal(n) * 0.1
+    l = A @ x_feas - rng.uniform(0.1, 2.0, m)
+    u = A @ x_feas + rng.uniform(0.1, 2.0, m)
+    t = [torch.tensor(a, device=dev) for a in (P, q, A, l, u)]
+    t0 = time.perf_counter()
+    native_qp.build()
+    t_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nat = native_qp.solve_qp_native(*t, eps_abs=1e-9, eps_rel=1e-9)
+    t_nat = time.perf_counter() - t0
+    dense, t_dense, _ = no_kernel_run(
+        torch, dev, lambda: solve_dense_qp(
+            *t, SolverConfig(eps_abs=1e-9, eps_rel=1e-9, max_iter=20000)),
+        "dense QP")
+    diff = float(torch.max(torch.abs(nat.x - dense.x)))
+    log(f"native QP oracle (n={n}, m={m}): built with g++ in {t_build:.2f} "
+        f"s; {nat.iters} iterations, {t_nat * 1e3:.1f} ms on the host, solved "
+        f"{nat.solved}; solve_dense_qp on the card {dense.iters} iterations, "
+        f"{t_dense * 1e3:.1f} ms, solved {dense.solved}; max |dx| {diff:.3e}")
+    if not (nat.solved and dense.solved and diff <= 1e-6):
+        raise AssertionError(f"native QP vs solve_dense_qp: {diff:.3e}")
+    return {"native_ms": t_nat * 1e3, "native_iters": nat.iters,
+            "native_build_s": t_build,
+            "dense_ms": t_dense * 1e3, "dense_iters": dense.iters,
+            "max_abs_diff": diff}
+
+
+def phase12_entry(torch, dev):
+    """(d) torch_entry.entry() (one SCP step at M=64 on the card) and
+    dryrun_multichip over the host's cards."""
+    sys.path.insert(0, str(REPO))
+    import torch_entry
+
+    def step():
+        fn, args = torch_entry.entry()
+        return fn(*args)
+
+    us, t_entry, _ = no_kernel_run(torch, dev, step, "torch_entry.entry")
+    n = torch.cuda.device_count()
+    us_all, t_dry, _ = no_kernel_run(
+        torch, dev, lambda: torch_entry.dryrun_multichip(n), "dry run")
+    ok = bool(torch.isfinite(us).all()) and bool(torch.isfinite(us_all).all())
+    log(f"torch_entry.entry(): controls {tuple(us.shape)} in {t_entry:.2f} s; "
+        f"dryrun_multichip({n}): {tuple(us_all.shape)} in {t_dry:.2f} s; "
+        f"finite {ok}")
+    if not ok:
+        raise AssertionError("entry controls are not finite")
+    return {"entry_s": t_entry, "dryrun_s": t_dry, "cards": n}
+
+
+def phase12(torch, dev):
+    """Phase 12 in the main process: the sample-sharded solve, the native
+    QP oracle and the entry file (Anderson runs in the "golden" group);
+    none reaches a fused kernel."""
+    out = {}
+    for name, fn in (("shard_scp_1rank", lambda: phase12_shard_scp(torch, dev)),
+                     ("shard_qp_2ranks", lambda: phase12_two_ranks(torch, dev)),
+                     ("native_qp", lambda: phase12_native(torch, dev)),
+                     ("entry", lambda: phase12_entry(torch, dev))):
+        t = time.perf_counter()
+        out[name] = fn()
+        log(f"[phase 12 {name}] {time.perf_counter() - t:.2f} s")
+    return out
+
+
+def timed_phase(name, fn):
+    t = time.perf_counter()
+    out = fn()
+    log(f"[phase {name}] {time.perf_counter() - t:.2f} s")
+    return out
+
+
+def group_golden(torch, dev):
+    """Phase 2, then phase 12(a) from its plan."""
+    opt64, _, res64 = timed_phase("2", lambda: phase2(torch, dev))
+    return {"anderson": timed_phase("12 anderson", lambda: phase12_anderson(
+        torch, dev, opt64, res64))}
+
+
+def group_ipm(torch, dev):
+    return timed_phase("9", lambda: phase9(torch, dev, drone64(),
+                                           load_gold(torch, dev)))
+
+
+def group_ds(torch, dev):
+    _, _, st, data32 = scaled_problem(
+        torch, dev, M, lambda opt: load_omegas(torch, torch.float64, dev))
+    problem = (None, None, None, None, st, data32)
+    return timed_phase("10", lambda: phase10(torch, dev, problem, drone64(),
+                                             load_gold(torch, dev)))
+
+
+# Phases that reach neither kernel and run for minutes on the host's clock
+# (the plain solvers are bound by their launches): each group runs in a
+# process of its own beside the main one, started once the kernels are built
+# and timed on a quiet card. Their wall times are taken beside each other's.
+GROUPS = {"golden": group_golden, "ipm": group_ipm, "ds": group_ds}
+GROUP_TIMEOUT = 1000  # seconds from the start of the groups
+
+
+def group_worker(argv):
+    """`--group NAME --out FILE`: run one phase group on the card and write
+    its results to FILE as JSON."""
+    import torch
+
+    sys.path.insert(0, str(REPO))
+    name, out = argv[argv.index("--group") + 1], argv[argv.index("--out") + 1]
+    dev = torch.device("cuda:0")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    Path(out).write_text(json.dumps(GROUPS[name](torch, dev)))
+    return 0
+
+
+def start_groups(tmp):
+    procs = {}
+    for name in GROUPS:
+        log_file = open(tmp / f"{name}.log", "w")
+        procs[name] = (subprocess.Popen(
+            [sys.executable, str(REPO / "chip_smoke.py"), "--group", name,
+             "--out", str(tmp / f"{name}.json")],
+            stdout=log_file, stderr=subprocess.STDOUT, cwd=REPO), log_file)
+    return procs
+
+
+def stop_groups(procs):
+    for p, log_file in procs.values():
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+        log_file.close()
+
+
+def join_groups(procs, tmp, deadline):
+    """Wait for each group (killed at the deadline), print its log, and
+    return its results; a group that failed fails the script."""
+    out = {}
+    for name, (p, log_file) in procs.items():
+        try:
+            rc = p.wait(timeout=max(deadline - time.perf_counter(), 1))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            rc = p.wait()
+        log_file.close()
+        log(f"--- phase group {name!r} (its own process), exit {rc}:")
+        for line in (tmp / f"{name}.log").read_text().splitlines():
+            log("  " + line)
+        if rc != 0:
+            raise AssertionError(f"phase group {name!r} exited {rc}")
+        out[name] = json.loads((tmp / f"{name}.json").read_text())
+    return out
+
 
 def main():
     if not (REPO / "riskaversetrajopt_torch").is_dir():
@@ -1796,6 +2256,8 @@ def main():
               "this script; run it from a checkout of the repository",
               file=sys.stderr)
         return 2
+    import tempfile
+
     import torch
 
     if not torch.cuda.is_available():
@@ -1804,9 +2266,7 @@ def main():
     sys.path.insert(0, str(REPO))
     dev = torch.device("cuda:0")
 
-    t = time.perf_counter()
-    smi = phase0(torch)
-    log(f"[phase 0] {time.perf_counter() - t:.2f} s")
+    smi = timed_phase("0", lambda: phase0(torch))
     b1 = {"name": "saa_admm_chunk", "route": "cuda",
           "source": "riskaversetrajopt_torch/csrc/saa_admm.cu",
           "replaces": "riskaversetrajopt_tpu/ops/pallas/experimental/"
@@ -1815,61 +2275,69 @@ def main():
           "source": "riskaversetrajopt_torch/csrc/saa_admm_f.cu",
           "replaces": "riskaversetrajopt_tpu/ops/pallas/experimental/"
                       "saa_admm_f.py:425"}
-    t = time.perf_counter()
-    stats, problem = phase1(torch, dev)
+    # the kernels against their plain versions, timed while no other
+    # process uses the card
+    stats, problem = timed_phase("1", lambda: phase1(torch, dev))
     b1.update(stats)
-    log(f"[phase 1] {time.perf_counter() - t:.2f} s")
-    t = time.perf_counter()
-    opt64, gold = phase2(torch, dev)
-    log(f"[phase 2] {time.perf_counter() - t:.2f} s")
-    t = time.perf_counter()
-    paths1, paths2 = {}, {}
-    paths1["drone M=1000 solve (phase 3)"] = phase3(torch, dev, opt64, gold)
-    log(f"[phase 3] {time.perf_counter() - t:.2f} s")
-    t = time.perf_counter()
-    b2.update(phase4(torch, problem))
-    log(f"[phase 4] {time.perf_counter() - t:.2f} s")
-    t = time.perf_counter()
-    paths2["drone M=1000 solve (phase 5)"] = phase5(torch, dev, opt64, gold)
-    log(f"[phase 5] {time.perf_counter() - t:.2f} s")
-    t = time.perf_counter()
-    phase6(torch, problem)
-    log(f"[phase 6] {time.perf_counter() - t:.2f} s")
-    t = time.perf_counter()
-    car = phase7_kernels(torch, dev)
+    b2.update(timed_phase("4", lambda: phase4(torch, problem)))
+    timed_phase("6", lambda: phase6(torch, problem))
+    car = timed_phase("7 kernels", lambda: phase7_kernels(torch, dev))
     b1["car"], b2["car"] = car["b1"], car["b2"]
-    car_launches = phase7_scp(torch, dev)
-    # this slice's main path: the car's SCP through each kernel
-    b1["launches"] = paths1["car M=50 solve (phase 7)"] = car_launches["_admm-pallas"]
-    b2["launches"] = paths2["car M=50 solve (phase 7)"] = car_launches["_admm-pallas-f"]
-    log(f"[phase 7] {time.perf_counter() - t:.2f} s")
-    t = time.perf_counter()
-    n_instr, split = phase8_instrumented(torch, dev, opt64)
-    paths1["drone M=1000 solve_instrumented (phase 8)"] = n_instr
-    b1["define_solve_split_m1000"] = split
-    paths1.update(phase8_resume_and_many(torch, dev))
-    drone_gauss = phase8_clis(torch, dev)
-    log(f"[phase 8] {time.perf_counter() - t:.2f} s")
-    t = time.perf_counter()
-    ipm_family = phase9(torch, dev, opt64, gold)
-    # this slice's paths reach neither kernel (no_kernel_run holds them to 0)
-    for backend, st in ipm_family["scp_m1000"].items():
+    for name, k in (("b1", b1), ("b2_highest", b2), ("b2_high", b2)):
+        k.setdefault("car_free_row_err", {})[name] = {
+            it: r[name] for it, r in car["free_row"].items()}
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        deadline = time.perf_counter() + GROUP_TIMEOUT
+        procs = start_groups(tmp)
+        try:
+            opt64, gold = drone64(), load_gold(torch, dev)
+            paths1, paths2 = {}, {}
+            paths1["drone M=1000 solve (phase 3)"] = timed_phase(
+                "3", lambda: phase3(torch, dev, opt64, gold))
+            paths2["drone M=1000 solve (phase 5)"] = timed_phase(
+                "5", lambda: phase5(torch, dev, opt64, gold))
+            car_launches = timed_phase("7 scp", lambda: phase7_scp(torch, dev))
+            # this slice's main path: the car's SCP through each kernel
+            b1["launches"] = paths1["car M=50 solve (phase 7)"] = \
+                car_launches["_admm-pallas"]
+            b2["launches"] = paths2["car M=50 solve (phase 7)"] = \
+                car_launches["_admm-pallas-f"]
+            t = time.perf_counter()
+            n_instr, split = phase8_instrumented(torch, dev, opt64)
+            paths1["drone M=1000 solve_instrumented (phase 8)"] = n_instr
+            b1["define_solve_split_m1000"] = split
+            paths1.update(phase8_resume_and_many(torch, dev))
+            drone_gauss = phase8_clis(torch, dev)
+            log(f"[phase 8] {time.perf_counter() - t:.2f} s")
+            timed_phase("11", lambda: phase11(torch, dev, drone_gauss))
+            # nor do this slice's (no_kernel_run holds them to 0)
+            for where in ("hopper CLI (phase 11)", "f32 hopper (phase 11)",
+                          "drone_gaussian CLI (phase 11)"):
+                paths1[where] = paths2[where] = 0
+            p12 = timed_phase("12", lambda: phase12(torch, dev))
+            groups = join_groups(procs, tmp, deadline)
+        finally:
+            stop_groups(procs)
+    # the groups' paths reach neither kernel (no_kernel_run holds each to 0
+    # in its process)
+    for backend, st in groups["ipm"]["scp_m1000"].items():
         where = f"drone M=1000 {backend!r} solve (phase 9)"
         paths1[where], paths2[where] = st["kernel_launches"]
-    log(f"[phase 9] {time.perf_counter() - t:.2f} s")
-    t = time.perf_counter()
-    ds_gauss = phase10(torch, dev, problem, opt64, gold)
-    # nor do this slice's (no_kernel_run holds them to 0)
     where = "drone M=1000 'admm-ds' solve (phase 10)"
-    paths1[where], paths2[where] = ds_gauss["ds_scp_m1000"]["kernel_launches"]
-    log(f"[phase 10] {time.perf_counter() - t:.2f} s")
-    t = time.perf_counter()
-    phase11(torch, dev, drone_gauss)
-    # nor do this slice's (no_kernel_run holds them to 0)
-    for where in ("hopper CLI (phase 11)", "f32 hopper (phase 11)",
-                  "drone_gaussian CLI (phase 11)"):
+    paths1[where], paths2[where] = \
+        groups["ds"]["ds_scp_m1000"]["kernel_launches"]
+    # nor do phase 12's (no_kernel_run holds them to 0; the two-rank
+    # workers report their counts)
+    for where in ("Anderson 'admm' QP M=1000 (phase 12)",
+                  "sharded 'admm' SCP, one NCCL rank (phase 12)",
+                  "sharded 'admm' QP, two ranks (phase 12)",
+                  "dense QP vs native oracle (phase 12)",
+                  "torch_entry entry and dry run (phase 12)"):
         paths1[where] = paths2[where] = 0
-    log(f"[phase 11] {time.perf_counter() - t:.2f} s")
+    log("phase 12 summary " + json.dumps(
+        {"anderson": groups["golden"]["anderson"], **p12}))
     b1["launches_by_path"], b2["launches_by_path"] = paths1, paths2
     for k in (b1, b2):
         k["card"] = smi
@@ -1882,4 +2350,8 @@ def main():
 
 
 if __name__ == "__main__":
+    if "--shard-worker" in sys.argv:
+        sys.exit(shard_worker(sys.argv[1:]))
+    if "--group" in sys.argv:
+        sys.exit(group_worker(sys.argv[1:]))
     sys.exit(main())

@@ -11,6 +11,7 @@ Two questions, each answered from source trees side by side:
 
     python3 kernel_ab.py prepare DIR [--parent REV]   # needs git
     python3 kernel_ab.py run DIR                      # needs the card
+    python3 kernel_ab.py free DIR                     # needs the card
 
 `prepare` writes one tree per variant into DIR (riskaversetrajopt_torch/,
 chip_smoke.py and tests/fixtures/ each): `parent` (REV, by git archive),
@@ -20,7 +21,10 @@ the trees in the order parent, runtime_flag, new, new, runtime_flag,
 parent, runs the car probe on `new` and each fault tree, and the car SCP
 probe (iteration counts and digests) on `runtime_flag` and `new`. Each
 probe is a process of its own (`python3 kernel_ab.py probe TREE MODE`);
-its JSON line is printed and appended to DIR/results.jsonl.
+its JSON line is printed and appended to DIR/results.jsonl. `free` builds
+`new` and the fault trees only and reads kernel_checks.free_row_errs (the
+check of chip_smoke.py phase 7 that sees the free-row branch) on each,
+B1 and B2 "highest"/"high", at the car's scp_iter 0 and, forced, 3.
 """
 
 from __future__ import annotations
@@ -142,6 +146,8 @@ def probe(tree: Path, mode: str) -> dict:
                 for _ in range(3)]
     elif mode == "car_scp":
         out.update(car_scp_probe(torch, cs, sk, dev))
+    elif mode == "free":
+        out.update(free_probe(torch, cs, dev))
     else:  # car
         out.update(car_probe(torch, cs, sk, fk, dev))
     return out
@@ -192,6 +198,28 @@ def car_scp_probe(torch, cs, sk, dev) -> dict:
     return out
 
 
+def free_probe(torch, cs, dev) -> dict:
+    """kernel_checks.free_row_errs of B1 and B2 "highest"/"high" on the
+    car's structure at scp_iter 0 and, with the free-row form forced, 3
+    (chip_smoke.free_row_check's readings, without its limit)."""
+    from riskaversetrajopt_torch.ops.cuda import kernel_checks as kc
+
+    opt = cs.car_opt(torch)
+    om = opt.sample(torch.Generator().manual_seed(0), cs.CAR_M)
+    out = {}
+    for scp_iter in (0, 3):
+        p, d, _, _ = cs.scaled_of(torch, dev, opt, om, cs.CAR_ALPHA, scp_iter)
+        try:
+            out[f"scp_iter_{scp_iter}"] = cs.free_row_check(
+                torch, p, d, f"scp_iter {scp_iter}")
+        except AssertionError:  # a fault: read without the limit
+            lim, kc.FREE_ROW_TOL = kc.FREE_ROW_TOL, float("inf")
+            out[f"scp_iter_{scp_iter}"] = cs.free_row_check(
+                torch, p, d, f"scp_iter {scp_iter}")
+            kc.FREE_ROW_TOL = lim
+    return out
+
+
 def car_probe(torch, cs, sk, fk, dev) -> dict:
     """B1 (100 iterations) and B2 "highest"/"high" (25) against their plain
     versions on the car's structure: the state measure, epigraph_err, and
@@ -237,27 +265,36 @@ def car_probe(torch, cs, sk, fk, dev) -> dict:
 
 def run(out: Path) -> int:
     trees = ["parent", "runtime_flag", "new", *FAULTS]
-
-    def call(tree, mode):
-        proc = subprocess.run(
-            [sys.executable, __file__, "probe", str(out / tree), mode],
-            capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"{mode} {tree}:\n{proc.stdout}\n{proc.stderr}")
-        line = proc.stdout.strip().splitlines()[-1]
-        print(line, flush=True)
-        with open(out / "results.jsonl", "a") as f:
-            f.write(line + "\n")
-
     with ThreadPoolExecutor(len(trees)) as pool:
-        list(pool.map(lambda t: call(t, "build"), trees))
+        list(pool.map(lambda t: _call(out, t, "build"), trees))
     for tree in TIMED:
-        call(tree, "time")
+        _call(out, tree, "time")
     for tree in ("new", *FAULTS):
-        call(tree, "car")
+        _call(out, tree, "car")
     for tree in ("runtime_flag", "new"):
-        call(tree, "car_scp")
+        _call(out, tree, "car_scp")
     return 0
+
+
+def run_free(out: Path) -> int:
+    trees = ["new", *FAULTS]
+    with ThreadPoolExecutor(len(trees)) as pool:
+        list(pool.map(lambda t: _call(out, t, "build"), trees))
+    for tree in trees:
+        _call(out, tree, "free")
+    return 0
+
+
+def _call(out: Path, tree: str, mode: str) -> None:
+    proc = subprocess.run(
+        [sys.executable, __file__, "probe", str(out / tree), mode],
+        capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"{mode} {tree}:\n{proc.stdout}\n{proc.stderr}")
+    line = proc.stdout.strip().splitlines()[-1]
+    print(line, flush=True)
+    with open(out / "results.jsonl", "a") as f:
+        f.write(line + "\n")
 
 
 def main(argv) -> int:
@@ -267,6 +304,8 @@ def main(argv) -> int:
         return 0
     if len(argv) == 2 and argv[0] == "run":
         return run(Path(argv[1]).resolve())
+    if len(argv) == 2 and argv[0] == "free":
+        return run_free(Path(argv[1]).resolve())
     if len(argv) == 3 and argv[0] == "probe":
         print(json.dumps(probe(Path(argv[1]), argv[2])), flush=True)
         return 0

@@ -60,6 +60,34 @@ class SolverConfig:
 
 
 @dataclass(frozen=True)
+class PDIPConfig:
+    """Primal-dual interior-point NLP solver knobs (IPOPT-equivalent); the
+    JAX package defines it and nothing reads it there either."""
+
+    tol: float = 1e-6
+    max_iter: int = 300
+    mu_init: float = 1e-1
+    kappa_mu: float = 0.2
+    theta_mu: float = 1.5
+    tau_min: float = 0.99
+    reg_init: float = 1e-8
+    reg_max: float = 1e8
+    bound_push: float = 1e-2
+    bound_frac: float = 1e-2
+
+
+@dataclass(frozen=True)
+class MeshConfig:
+    """Layout of the ranks: samples split over `sample_devices` ranks and
+    independent problems over `batch_devices` (parallel/mesh.py)."""
+
+    sample_devices: int = 1
+    batch_devices: int = 1
+    sample_axis: str = "samples"
+    batch_axis: str = "batch"
+
+
+@dataclass(frozen=True)
 class DroneScenario:
     """Drone point-mass with quadratic drag, feedback-corrected control, mass
     uncertainty and uncertain ellipsoidal obstacles (drone_params.py:1-45)."""

@@ -19,6 +19,9 @@ Operator interface:
     kkt_solve(factor, rhs, rho_vec, sigma_vec, cost_scale) -> x
         solves (cost_scale*P + diag(sigma_vec) + A^T diag(rho_vec) A) x = rhs
     row_inf_norms(D), col_inf_norms(E), col_inf_norms_P(D)   (for Ruiz)
+    reductions (optional): the global reductions over the solver's vectors
+        (LocalReductions when absent; parallel/distributed.SampleShard's
+        for an operator whose samples are split over processes)
 """
 
 from __future__ import annotations
@@ -36,6 +39,47 @@ _LOOSE_RHO = 1e-6
 _EQ_TOL = 1e-9
 _MIN_SCALING = 1e-4
 _MAX_SCALING = 1e4
+_AA_LAM = 1e-8  # Anderson's Tikhonov term, relative to the Gram's mean diagonal
+
+
+class LocalReductions:
+    """The reductions admm_solve takes over its vectors, where one process
+    holds every entry: plain torch reductions. An operator whose vectors
+    are split over processes carries its own (`ops.reductions`, the same
+    methods as collectives). `layout` names what a vector indexes: "x" the
+    variables, "w" the constraint rows, "xww" the concatenation (x, z, y)
+    of Anderson acceleration."""
+
+    def amax(self, *ts):
+        """The maximum of each tensor, stacked."""
+        return torch.stack([torch.amax(t) for t in ts])
+
+    def sum(self, *pairs):
+        """The sum of each (tensor, layout), stacked."""
+        return torch.stack([torch.sum(t) for t, _ in pairs])
+
+    def mean(self, t, layout):
+        return torch.mean(t)
+
+    def dot(self, a, b, layout):
+        return torch.dot(a, b)
+
+    def all(self, b):
+        return torch.all(b)
+
+    def any(self, b):
+        return torch.any(b)
+
+    def gram(self, F, layout):
+        """F F^T over the rows of F (each a vector of `layout`)."""
+        return F @ F.T
+
+
+LOCAL = LocalReductions()
+
+
+def reductions(ops):
+    return getattr(ops, "reductions", LOCAL)
 
 
 class QPSolution(NamedTuple):
@@ -71,6 +115,7 @@ def ruiz_equilibrate(ops, q, l, u, iters: int = 5) -> Scaling:
     """Modified Ruiz equilibration (OSQP sec 5.1), matrix-free: scales rows
     and columns of [[P, A^T], [A, 0]] toward unit infinity norm, then
     normalizes the cost."""
+    red = reductions(ops)
     kw = dict(dtype=q.dtype, device=q.device)
     D = torch.ones(q.shape[0], **kw)
     E = torch.ones(l.shape[0], **kw)
@@ -87,7 +132,7 @@ def ruiz_equilibrate(ops, q, l, u, iters: int = 5) -> Scaling:
         # cost normalization
         colP_new = c * D * ops.col_inf_norms_P(D)
         gamma_denom = torch.maximum(
-            torch.mean(colP_new), torch.amax(torch.abs(c * D * q))
+            red.mean(colP_new, "x"), red.amax(torch.abs(c * D * q))[0]
         )
         gamma = 1.0 / torch.clamp(gamma_denom, _MIN_SCALING, _MAX_SCALING)
         # bound the accumulated cost scaling (a fully degenerate objective
@@ -103,6 +148,7 @@ class ScaledOps:
     def __init__(self, inner, scaling: Scaling):
         self.inner = inner
         self.s = scaling
+        self.reductions = reductions(inner)
 
     def matvec_P(self, x):
         s = self.s
@@ -144,27 +190,29 @@ def rho_vector(l, u, rho):
     return torch.clamp(rho_vec, _RHO_MIN, _RHO_MAX)
 
 
-def certificate_terms(q, l, u, dy, dx, Atdy, Pdx, Adx):
+def certificate_terms(q, l, u, dy, dx, Atdy, Pdx, Adx, red=LOCAL):
     """OSQP infeasibility-certificate conditions (Stellato et al. sec 3.4)
     from the unscaled between-check deltas. Returns two 0-d bool tensors."""
     eps_inf = 1e-4
     inf = torch.tensor(float("inf"), dtype=u.dtype, device=u.device)
     zero = torch.zeros((), dtype=u.dtype, device=u.device)
-    dy_norm = torch.amax(torch.abs(dy))
-    sup = torch.sum(
-        torch.where(dy > 0, torch.where(torch.isfinite(u), u, inf) * dy, zero)
-    ) + torch.sum(
-        torch.where(dy < 0, torch.where(torch.isfinite(l), l, -inf) * dy, zero)
+    dy_norm, Atdy_norm, dx_norm, Pdx_norm = red.amax(
+        torch.abs(dy), torch.abs(Atdy), torch.abs(dx), torch.abs(Pdx))
+    sup_u, sup_l = red.sum(
+        (torch.where(dy > 0, torch.where(torch.isfinite(u), u, inf) * dy,
+                     zero), "w"),
+        (torch.where(dy < 0, torch.where(torch.isfinite(l), l, -inf) * dy,
+                     zero), "w"),
     )
+    sup = sup_u + sup_l
     prim_inf = (
         (dy_norm > 1e-10)
-        & (torch.amax(torch.abs(Atdy)) <= eps_inf * dy_norm)
+        & (Atdy_norm <= eps_inf * dy_norm)
         & (sup <= eps_inf * dy_norm)
     )
 
-    dx_norm = torch.amax(torch.abs(dx))
     tol = eps_inf * dx_norm
-    cone_ok = torch.all(
+    cone_ok = red.all(
         torch.where(
             torch.isinf(u),
             torch.isinf(-l) | (Adx >= -tol),
@@ -173,11 +221,47 @@ def certificate_terms(q, l, u, dy, dx, Atdy, Pdx, Adx):
     )
     dual_inf = (
         (dx_norm > 1e-10)
-        & (torch.amax(torch.abs(Pdx)) <= tol)
-        & (torch.dot(q, dx) <= tol)
+        & (Pdx_norm <= tol)
+        & (red.dot(q, dx, "x") <= tol)
         & cone_ok
     )
     return prim_inf, dual_inf
+
+
+def anderson_step(hist, g, f, red=LOCAL):
+    """One safeguarded type-II Anderson step (OSQP v1 style; admm.py:391-421
+    of the JAX package) on the fixed-point map w -> T(w), w = (x, z, y).
+
+    `hist` = (w_hist, f_hist, cnt): circular buffers of the last `depth`
+    pairs (T(w), F = T(w) - w) and the number of pairs pushed so far (a host
+    int). Pushes (g, f) = (T(w), T(w) - w), solves the Tikhonov-regularized
+    least-squares min ||sum_i a_i F_i|| s.t. sum_i a_i = 1 over the valid
+    pairs (invalid rows and columns of the Gram matrix set to the identity,
+    so their coefficients solve to 0) and returns the new history and
+    sum_i a_i T(w_i) if its predicted residual does not exceed the plain
+    step's and it is finite, else g."""
+    w_hist, f_hist, cnt = hist
+    depth = w_hist.shape[0]
+    dtype, device = g.dtype, g.device
+    slot = cnt % depth
+    w_hist[slot] = g
+    f_hist[slot] = f
+    cnt += 1
+    valid = torch.arange(depth, device=device) < min(cnt, depth)
+    Fm = torch.where(valid[:, None], f_hist, 0.0)
+    gram = red.gram(Fm, "xww")
+    scale = torch.trace(gram) / max(min(cnt, depth), 1) + 1e-30
+    eye = torch.eye(depth, dtype=dtype, device=device)
+    gram = gram + _AA_LAM * scale * eye
+    gram = torch.where(torch.outer(valid, valid), gram, eye)
+    beta = torch.linalg.solve(gram, valid.to(dtype))
+    a = beta / (torch.sum(beta) + 1e-30)
+    a = torch.where(valid, a, 0.0)
+    w_acc = a @ w_hist
+    r_acc = a @ Fm
+    rr, ff = red.sum((r_acc * r_acc, "xww"), (f * f, "xww"))
+    ok = red.all(torch.isfinite(w_acc)) & (rr <= ff)
+    return (w_hist, f_hist, cnt), torch.where(ok, w_acc, g)
 
 
 def admm_solve(
@@ -202,12 +286,12 @@ def admm_solve(
     Loop structure (admm.py:519-588): an outer loop refactorizes at each rho
     epoch and an inner loop iterates at fixed (rho, factor); every
     `interval` iterations a termination check computes residuals,
-    certificates, the next interval and the adaptive-rho request."""
-    if cfg.anderson_depth > 0:
-        raise NotImplementedError(
-            "Anderson acceleration (SolverConfig.anderson_depth > 0) is not "
-            "ported yet (ROADMAP.md, Queue A)"
-        )
+    certificates, the next interval and the adaptive-rho request.
+
+    With cfg.anderson_depth > 0 each iteration of the inner loop is followed
+    by a safeguarded Anderson step (`anderson_step`); its history restarts
+    at every termination check, hence at every rho epoch too."""
+    red = reductions(ops)
     dtype, device = q.dtype, q.device
     kw = dict(dtype=dtype, device=device)
     n = q.shape[0]
@@ -236,7 +320,7 @@ def admm_solve(
         _RHO_MIN, _RHO_MAX,
     )
     ruf = float(cfg.rho_update_factor)
-    q_norm_unscaled = torch.amax(torch.abs(q))
+    q_norm_unscaled = red.amax(torch.abs(q))[0]
     eps_s = torch.as_tensor(1.0 if eps_scale is None else eps_scale, **kw)
 
     # Periodic KKT refinement (cfg.kkt_refine_period > 1): the refined solve
@@ -272,20 +356,17 @@ def admm_solve(
         zu = z / E
         Px = Px_s / (c * D)
         Aty = Aty_s / (c * D)
-        amax = lambda v: torch.amax(torch.abs(v))  # noqa: E731
-        prim = amax(Ax - zu)
-        dual = amax(Px + q + Aty)
+        (prim, dual, n_Ax, n_zu, n_Px, n_Aty, prim_s, dual_s, n_Ax_s, n_z,
+         n_Px_s, n_Aty_s, n_qs) = red.amax(*(torch.abs(v) for v in (
+             Ax - zu, Px + q + Aty, Ax, zu, Px, Aty, Ax_s - z,
+             Px_s + qs + Aty_s, Ax_s, z, Px_s, Aty_s, qs)))
         eps_prim = eps_s * (cfg.eps_abs + cfg.eps_rel * torch.maximum(
-            amax(Ax), amax(zu)))
+            n_Ax, n_zu))
         eps_dual = eps_s * (cfg.eps_abs + cfg.eps_rel * torch.maximum(
-            torch.maximum(amax(Px), amax(Aty)), q_norm_unscaled))
+            torch.maximum(n_Px, n_Aty), q_norm_unscaled))
         # adaptive-rho ratio uses scaled residuals (OSQP sec 5.2)
-        prim_s = amax(Ax_s - z)
-        dual_s = amax(Px_s + qs + Aty_s)
-        denom_p = torch.maximum(amax(Ax_s), amax(z)) + 1e-30
-        denom_d = torch.maximum(
-            torch.maximum(amax(Px_s), amax(Aty_s)), amax(qs)
-        ) + 1e-30
+        denom_p = torch.maximum(n_Ax_s, n_z) + 1e-30
+        denom_d = torch.maximum(torch.maximum(n_Px_s, n_Aty_s), n_qs) + 1e-30
         ratio = (prim_s / denom_p) / (dual_s / denom_d + 1e-30)
         return prim, dual, eps_prim, eps_dual, ratio
 
@@ -305,7 +386,7 @@ def admm_solve(
         dx = (x_new - x_old) * D  # unscaled primal delta
         p_inf, d_inf = certificate_terms(
             q, l, u, dy, dx, ops.rmatvec_A(dy), ops.matvec_P(dx),
-            ops.matvec_A(dx),
+            ops.matvec_A(dx), red,
         )
         far = (prim > 100.0 * eps_prim) | (dual > 100.0 * eps_dual)
         if cfg.adaptive_rho:
@@ -317,6 +398,7 @@ def admm_solve(
         flags = torch.stack([solved, p_inf, d_inf, far, refactor]).tolist()
         return prim, dual, rho_new, flags
 
+    depth = int(cfg.anderson_depth)
     factor = sops.factorize(rho_vector(ls, us, rho), sigma_vec)
     epoch = int(cfg.rho_epoch_every) if cfg.adaptive_rho else 0
     epoch_end = min(it + epoch, cfg.max_iter) if epoch > 0 else None
@@ -329,8 +411,19 @@ def admm_solve(
             it < epoch_end if epoch > 0 else (not refactor and it < cfg.max_iter)
         ):
             x_old, y_old = x, y
+            if depth > 0:
+                # the history restarts at every termination check
+                hist = (torch.zeros(depth, n + 2 * m, **kw),
+                        torch.zeros(depth, n + 2 * m, **kw), 0)
             for j in range(interval):
-                x, z, y = one_iter(x, z, y, rv, factor, it + j)
+                xp, zp, yp = one_iter(x, z, y, rv, factor, it + j)
+                if depth == 0:
+                    x, z, y = xp, zp, yp
+                    continue
+                g = torch.cat([xp, zp, yp])
+                hist, w_new = anderson_step(
+                    hist, g, g - torch.cat([x, z, y]), red)
+                x, z, y = w_new[:n], w_new[n:n + m], w_new[n + m:]
             prim_res, dual_res, rho_c, (solved, prim_inf, dual_inf, far,
                                         refactor) = check(
                 x, z, y, x_old, y_old, interval
@@ -391,6 +484,7 @@ def _polish(ops, q, l, u, x, y, z, cfg, eq_mask=None, active_masks=None):
     relative dtype-aware threshold. Rows of `eq_mask` are always active and
     never dropped. Returns x, y, z and whether the polished iterate was
     accepted."""
+    red = reductions(ops)
     dtype = q.dtype
     n = q.shape[0]
     kw = dict(dtype=dtype, device=q.device)
@@ -402,7 +496,7 @@ def _polish(ops, q, l, u, x, y, z, cfg, eq_mask=None, active_masks=None):
     if active_masks is not None:
         lower_active, upper_active = active_masks
     else:
-        y_tol = eps**0.75 * torch.clamp(torch.amax(torch.abs(y)), min=1.0)
+        y_tol = eps**0.75 * torch.clamp(red.amax(torch.abs(y))[0], min=1.0)
         lower_active = y < -y_tol
         upper_active = y > y_tol
     if eq_mask is not None:
@@ -433,21 +527,20 @@ def _polish(ops, q, l, u, x, y, z, cfg, eq_mask=None, active_masks=None):
 
     # Active-set correction: drop rows whose multiplier took the wrong sign
     # and re-solve once; equality rows are never dropped
-    s_tol = eps**0.5 * torch.clamp(torch.amax(torch.abs(y_pol)), min=1.0)
+    s_tol = eps**0.5 * torch.clamp(red.amax(torch.abs(y_pol))[0], min=1.0)
     droppable = ~eq_like if eq_mask is None else ~(eq_like | eq_mask)
     wrong = droppable & (
         (lower_active & ~upper_active & (y_pol > s_tol))
         | (upper_active & ~lower_active & (y_pol < -s_tol))
     )
-    if bool(torch.any(wrong)):
+    if bool(red.any(wrong)):
         x_pol, y_pol = solve_with(lower_active & ~wrong, upper_active & ~wrong)
 
     z_pol = torch.clamp(ops.matvec_A(x_pol), l, u)
 
     def resid(xx, yy, zz):
-        prim = torch.amax(torch.abs(ops.matvec_A(xx) - zz))
-        dual = torch.amax(torch.abs(ops.matvec_P(xx) + q + ops.rmatvec_A(yy)))
-        return prim, dual
+        return red.amax(torch.abs(ops.matvec_A(xx) - zz),
+                        torch.abs(ops.matvec_P(xx) + q + ops.rmatvec_A(yy)))
 
     p0, d0 = resid(x, y, z)
     p1, d1 = resid(x_pol, y_pol, z_pol)

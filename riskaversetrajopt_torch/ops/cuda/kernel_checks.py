@@ -16,6 +16,14 @@ shared by chip_smoke.py and tests/test_torch_cuda_kernels.py.
   measure is set by the float32 noise of the equality-row duals, and reads
   the same for a kernel whose free-row KKT form is wrong; these fields,
   which that form computes, are where a fault shows.
+- `free_row_errs`: one kernel iteration of the free-row (sm_free) form from
+  built states against one float64 plain iteration from the same states,
+  on the CVaR row. `epigraph_err` cannot see the beta c2 terms of that
+  form: on the car's gated structure they move s, t and y by 1e-5 of
+  their scale over 25-100 iterations, under the float32 noise of two
+  orders of sums (1.7e-4). Here states with large s and t make c2 =
+  cs_hat s_t + ct_hat t_t large, the reference carries no float32 noise,
+  and the CVaR row is where the y-block solve's c2 terms land.
 - `sweep_errs_f` / `check_sweeps_f`: the two sweeps of one B2 iteration
   against float64 arithmetic of each sweep precision on the kernel's own
   operands. The state measure cannot tell the precisions apart: the
@@ -30,6 +38,13 @@ from __future__ import annotations
 
 import torch
 
+from riskaversetrajopt_torch.ops.cuda.saa_admm import (
+    KernelDims,
+    ScaledSAA,
+    ScaledState,
+    init_scaled_state,
+    one_iter_ref,
+)
 from riskaversetrajopt_torch.ops.cuda.saa_admm_f import (
     ScaledSAAF,
     ScaledStateF,
@@ -83,6 +98,53 @@ def epigraph_err(a, b):
         scale = float(torch.max(torch.abs(y)))
         err = max(err, diff / scale if scale > 0 else
                   (float("inf") if diff > 0 else 0.0))
+    return err
+
+
+# `free_row_errs` of a correct kernel is at most FREE_ROW_TOL. On the
+# car's structure (M=12 and 50) at scp_iter 0 and, with the free-row form
+# forced, at 3, the float32 plain iteration reads <= 3.1e-4 and a float32
+# model of the kernel's three phases <= 5.1e-4; with a planted fault (the
+# sign of wD B1 in X1, beta c2 dropped from kappa2 or from cv) that model
+# reads >= 6.5e-2 (CPU runs; the card's readings in PERF.md).
+FREE_ROW_TOL = 5e-3
+# the states: normal entries from CPU generators with these seeds, s and t
+# scaled by FREE_ROW_ST so that the beta c2 terms dominate
+FREE_ROW_SEEDS, FREE_ROW_ST = (0, 1, 2), 1e3
+
+
+def free_row_state(p: ScaledSAA, seed: int) -> ScaledState:
+    """A float32 state of p's shapes on p's device: standard normal entries
+    (CPU generator seeded `seed`), s and t times FREE_ROW_ST."""
+    g = torch.Generator().manual_seed(seed)
+    s = type(init_scaled_state(p))(*(
+        torch.randn(x.shape, generator=g, dtype=torch.float32).to(x.device)
+        for x in init_scaled_state(p)))
+    return s._replace(s=s.s * FREE_ROW_ST, t=s.t * FREE_ROW_ST)
+
+
+def free_row_ref(p: ScaledSAA, s: ScaledState, d: KernelDims) -> ScaledState:
+    """One plain iteration from `s` in float64 (p's float32 values, exact
+    in float64): the free-row form's algebra without float32 rounding."""
+    f64 = lambda nt: type(nt)(*(x.double() for x in nt))  # noqa: E731
+    return one_iter_ref(f64(p), f64(s), d)
+
+
+def free_row_err(a: ScaledState, b: ScaledState, d: KernelDims) -> float:
+    """max |a - b| / (1 + |b|) over the CVaR row's z and yd."""
+    c = d.n_fc
+    return max(float(torch.abs(x[c].double() - y[c]) / (1 + torch.abs(y[c])))
+               for x, y in ((a.z_small, b.z_small), (a.yd_small, b.yd_small)))
+
+
+def free_row_errs(p: ScaledSAA, d: KernelDims, step) -> float:
+    """The largest free_row_err of `step` (one kernel iteration, ScaledState
+    in and out) over the states of FREE_ROW_SEEDS, each against
+    free_row_ref from the same state."""
+    err = 0.0
+    for seed in FREE_ROW_SEEDS:
+        s = free_row_state(p, seed)
+        err = max(err, free_row_err(step(s), free_row_ref(p, s, d), d))
     return err
 
 

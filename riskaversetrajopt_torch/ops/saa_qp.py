@@ -7,6 +7,17 @@ z = [u (n) | y (M) | s | t]; row blocks
 [final (n_fc) | CVaR row | -y_i - s rows (M) | sample blocks (M*K) |
  slack row | control rows (n)]. The only large object is the stack of
 per-sample constraint Jacobians G (M, K, n).
+
+Sample-sharded mode (`shard`, a parallel/distributed.SampleShard): this
+process holds samples [offset, offset + M_local) of the M in SAAQPStatic.M:
+its slice of G, g_up and y, and its y rows and sample rows; u, s, t, the
+final, CVaR and slack rows and the control rows are replicated on every
+process. Every sum and max over the sample axis is a collective over the
+shard's group (`SampleShard.sum` / `max`), each a vector of at most
+(n+2)^2 entries, never G; `SampleShard.reductions` gives the ADMM its
+global reductions with the replicated entries counted once. With
+`shard=None` one process holds every sample and the arithmetic is the
+unsharded one.
 """
 
 from __future__ import annotations
@@ -84,15 +95,20 @@ class SAAQPData(NamedTuple):
 
 
 def pack_saa_qp_data(
-    lin: SampleLinearization, us_prev_vec, p_diag_u, alpha
+    lin: SampleLinearization, us_prev_vec, p_diag_u, alpha, shard=None
 ) -> SAAQPData:
     """Build per-iteration QP data from a batched linearization
     (car/driving.py:289-296):
       equality rows:  F u = mean_i(-f_i + F_i u_prev)  with F = mean_i F_i
       sample rows:    G_i u <= -g_i + G_i u_prev
-    """
+    With `shard` the linearization holds this process's samples; F and
+    f_rhs are the means over all M (the local means weighted M_local / M
+    and summed over the processes)."""
     F = torch.mean(lin.f_jac, dim=0)
     f_rhs = torch.mean(-lin.f_val + lin.f_jac @ us_prev_vec, dim=0)
+    if shard is not None:
+        w = shard.M_local / shard.M
+        F, f_rhs = shard.sum(F * w, f_rhs * w)
     g_up = -lin.g_val + lin.g_jac @ us_prev_vec
     G = lin.g_jac
     return SAAQPData(
@@ -112,14 +128,24 @@ class _RowScales(NamedTuple):
     s: torch.Tensor  # 0-d, slack row
 
 
-def _row_scales(st: SAAQPStatic, scp_iter: int, dtype, device) -> _RowScales:
+def _y_gated(st: SAAQPStatic, device, shard=None):
+    """Which y rows gate (by absolute sample index, see the JAX module
+    docstring), for this process's samples."""
+    i = torch.arange(st.M, device=device)
+    if shard is not None:
+        i = i[shard.offset:shard.offset + shard.M_local]
+    return i >= (st.n_x - st.n_fc - 1)
+
+
+def _row_scales(st: SAAQPStatic, scp_iter: int, dtype, device,
+                shard=None) -> _RowScales:
     gating = scp_iter < st.gate_iters
     kw = dict(dtype=dtype, device=device)
     gate = torch.tensor(st.gate_scale, **kw)
     one = torch.tensor(1.0, **kw)
     # absolute row index >= n_x is gated (see the JAX module docstring)
     c_gated = st.n_fc >= st.n_x
-    y_gated = torch.arange(st.M, device=device) >= (st.n_x - st.n_fc - 1)
+    y_gated = _y_gated(st, device, shard)
 
     c = gate if gating and c_gated else one
     y = torch.where(y_gated & gating, gate, one)
@@ -134,9 +160,12 @@ def _row_scales(st: SAAQPStatic, scp_iter: int, dtype, device) -> _RowScales:
     return _RowScales(c=c, y=y, gy=gy, g=g, s=s)
 
 
-def build_bounds(st: SAAQPStatic, data: SAAQPData, scp_iter: int):
-    """Assemble (l, u) in reference row order with gating applied."""
+def build_bounds(st: SAAQPStatic, data: SAAQPData, scp_iter: int,
+                 shard=None):
+    """Assemble (l, u) in reference row order with gating applied (this
+    process's rows under `shard`)."""
     kw = dict(dtype=data.G.dtype, device=data.G.device)
+    Ml = data.G.shape[0]
     inf = float("inf")
     gating = scp_iter < st.gate_iters
 
@@ -151,8 +180,7 @@ def build_bounds(st: SAAQPStatic, data: SAAQPData, scp_iter: int):
     l_c = full(1, st.gate_l if gating and c_gated else -inf)
     u_c = full(1, st.gate_u if gating and c_gated else 0.0)
     # y rows gate only where the static row-index mask says so
-    y_gated = (torch.arange(st.M, device=data.G.device)
-               >= (st.n_x - st.n_fc - 1)) & gating
+    y_gated = _y_gated(st, data.G.device, shard) & gating
     l_y = torch.where(y_gated, torch.tensor(st.gate_l, **kw),
                       torch.tensor(-inf, **kw))
     u_y = torch.where(y_gated, torch.tensor(st.gate_u, **kw),
@@ -161,10 +189,10 @@ def build_bounds(st: SAAQPStatic, data: SAAQPData, scp_iter: int):
     m = torch.tensor(st.row_scale, **kw)
     g_ub = m * (data.g_up - (st.baseline_pad if st.baseline else 0.0))
     if gating:
-        l_g, u_g = full(st.M * st.K, st.gate_l), full(st.M * st.K, st.gate_u)
+        l_g, u_g = full(Ml * st.K, st.gate_l), full(Ml * st.K, st.gate_u)
         l_s, u_s = full(1, st.gate_l), full(1, st.gate_u)
     else:
-        l_g, u_g = full(st.M * st.K, -inf), g_ub.reshape(-1)
+        l_g, u_g = full(Ml * st.K, -inf), g_ub.reshape(-1)
         l_s, u_s = full(1, -inf), full(1, 0.0)
 
     l_u = full(st.n, -st.u_max)
@@ -181,12 +209,13 @@ def build_objective(st: SAAQPStatic, data: SAAQPData):
     does not depend on the method: the baseline keeps the slack penalty on an
     unconstrained slack variable, as the reference does."""
     kw = dict(dtype=data.G.dtype, device=data.G.device)
+    Ml = data.G.shape[0]  # this process's samples (all M unsharded)
     p_diag = torch.cat([
         data.p_diag_u.to(**kw),
-        torch.zeros(st.M, **kw),
+        torch.zeros(Ml, **kw),
         torch.tensor([st.slack_penalty, 0.0], **kw),
     ])
-    q = torch.zeros(st.n + st.M + 2, **kw)
+    q = torch.zeros(st.n + Ml + 2, **kw)
     q[-2] = st.slack_penalty
     return p_diag, q
 
@@ -206,14 +235,23 @@ class SAAQPOps:
     sample axis goes through the double-single pairwise sums of
     ops/dsjit.py. sweep_precision: the precision of the per-iteration
     G-sweeps in matvec_A / rmatvec_A (`sweep_matmul`); the factorization
-    stays exact."""
+    stays exact. shard: this process's share of the samples (module
+    docstring); None, every sample."""
 
     def __init__(self, st: SAAQPStatic, data: SAAQPData, scp_iter: int,
                  kkt_refine_iters=1, kkt_refine_mode="true",
                  factorize_compensated=None, sweep_precision="highest",
-                 kkt_chol_inverse=False):
+                 kkt_chol_inverse=False, shard=None):
         check_sweep_precision(sweep_precision)
         self.st = st
+        self.shard = shard
+        self.Ml = data.G.shape[0]  # this process's samples
+        if shard is not None:
+            if self.Ml != shard.M_local or st.M != shard.M:
+                raise ValueError(
+                    f"SAAQPOps: {self.Ml} local samples of {st.M}, but the "
+                    f"shard holds {shard.M_local} of {shard.M}")
+            self.reductions = shard.reductions(st.n, st.n_fc, st.K)
         self.sweep_precision = sweep_precision
         self.data = data
         self.kkt_refine_mode = kkt_refine_mode
@@ -224,31 +262,42 @@ class SAAQPOps:
             factorize_compensated = self.dtype == torch.float32
         self.factorize_compensated = factorize_compensated
         self.m = torch.tensor(st.row_scale, dtype=self.dtype, device=self.device)
-        self.scales = _row_scales(st, int(scp_iter), self.dtype, self.device)
+        self.scales = _row_scales(st, int(scp_iter), self.dtype, self.device,
+                                  shard)
         self.p_diag, _ = build_objective(st, data)
         self.Malpha = st.M * data.alpha
         self.kkt_refine_iters = kkt_refine_iters
-        sc = self.scales
         # some y meets the CVaR row alone: its y row and every sample row
-        # are zeroed while the CVaR row is live (the car's gated iteration)
+        # are zeroed while the CVaR row is live (the car's gated iteration);
+        # a property of the whole structure, so of every sample's y row
+        sc = (self.scales if shard is None else
+              _row_scales(st, int(scp_iter), self.dtype, self.device))
         self.free_y = bool(
             (sc.c != 0) & (sc.g * sc.gy == 0) & torch.any(sc.y == 0))
 
+    def _sum(self, *ts):
+        """Sums over this process's samples -> sums over all M (each
+        tensor as it is when one process holds every sample)."""
+        return ts if self.shard is None else self.shard.sum(*ts)
+
+    def _max(self, *ts):
+        return ts if self.shard is None else self.shard.max(*ts)
+
     # -- pieces ------------------------------------------------------------
     def _split_z(self, z):
-        n, M = self.st.n, self.st.M
+        n, M = self.st.n, self.Ml
         return z[:n], z[n : n + M], z[n + M], z[n + M + 1]
 
     def _split_w(self, w):
-        st = self.st
+        st, M = self.st, self.Ml
         o = st.n_fc
         w_f = w[:o]
         w_c = w[o]
         o += 1
-        w_y = w[o : o + st.M]
-        o += st.M
-        w_G = w[o : o + st.M * st.K].reshape(st.M, st.K)
-        o += st.M * st.K
+        w_y = w[o : o + M]
+        o += M
+        w_G = w[o : o + M * st.K].reshape(M, st.K)
+        o += M * st.K
         w_s = w[o]
         o += 1
         w_u = w[o:]
@@ -265,7 +314,8 @@ class SAAQPOps:
         # CVaR row: sum(y) + s + M*alpha*t <= 0 — the reference's column
         # range n_u*S..-2 INCLUSIVE covers the slack column
         # (car/driving.py:341-342, drone/drone_risk.py:336-337)
-        r_c = sc.c * (torch.sum(y) + s + self.Malpha * t)
+        (sum_y,) = self._sum(torch.sum(y))
+        r_c = sc.c * (sum_y + s + self.Malpha * t)
         r_y = sc.y * (-y - s)
         Gu = sweep_matmul(self.data.G, u, self.sweep_precision)
         r_G = sc.g * m * (Gu - sc.gy * (y[:, None] + t))
@@ -279,14 +329,15 @@ class SAAQPOps:
         w_f, w_c, w_y, w_G, w_s, w_u = self._split_w(w)
         wG = sc.g * m * w_G  # (M, K) effective sample-row weights
         G = self.data.G
-        u_part = (self.data.F.T @ w_f
-                  + sweep_matmul(wG.reshape(-1), G.reshape(-1, st.n),
-                                 self.sweep_precision)
-                  + w_u)
         row_sums = torch.sum(wG, dim=1)  # (M,)
+        sweep, sum_yw, sum_rows = self._sum(
+            sweep_matmul(wG.reshape(-1), G.reshape(-1, st.n),
+                         self.sweep_precision),
+            torch.sum(sc.y * w_y), torch.sum(row_sums))
+        u_part = self.data.F.T @ w_f + sweep + w_u
         y_part = sc.c * w_c - sc.y * w_y - sc.gy * row_sums
-        s_part = sc.c * w_c - torch.sum(sc.y * w_y) - sc.s * w_s
-        t_part = sc.c * self.Malpha * w_c - sc.gy * torch.sum(row_sums)
+        s_part = sc.c * w_c - sum_yw - sc.s * w_s
+        t_part = sc.c * self.Malpha * w_c - sc.gy * sum_rows
         return torch.cat([u_part, y_part, s_part[None], t_part[None]])
 
     # -- Ruiz structural norms --------------------------------------------
@@ -295,8 +346,9 @@ class SAAQPOps:
         sc, m = self.scales, self.m
         D_u, D_y, D_s, D_t = self._split_z(D)
         r_final = torch.amax(torch.abs(self.data.F) * D_u[None, :], dim=1)
+        (max_Dy,) = self._max(torch.amax(D_y))
         r_c = sc.c * torch.maximum(
-            torch.maximum(torch.amax(D_y), D_s), self.Malpha * D_t
+            torch.maximum(max_Dy, D_s), self.Malpha * D_t
         )
         r_y = sc.y * torch.maximum(D_y, D_s)
         gu = torch.amax(torch.abs(self.data.G) * D_u[None, None, :], dim=2)
@@ -312,14 +364,12 @@ class SAAQPOps:
         """max_i E_i |A_ij| per column, segment-wise."""
         sc, m = self.scales, self.m
         E_f, E_c, E_y, E_G, E_s, E_u = self._split_w(E)
+        max_GE, max_yE, max_EG = self._max(
+            torch.amax(torch.abs(self.data.G) * E_G[:, :, None], dim=(0, 1)),
+            torch.amax(sc.y * E_y), torch.amax(E_G))
         c_u = torch.maximum(
             torch.amax(torch.abs(self.data.F) * E_f[:, None], dim=0),
-            torch.maximum(
-                sc.g * m * torch.amax(
-                    torch.abs(self.data.G) * E_G[:, :, None], dim=(0, 1)
-                ),
-                E_u,
-            ),
+            torch.maximum(sc.g * m * max_GE, E_u),
         )
         c_y = torch.maximum(
             sc.c * E_c,
@@ -327,10 +377,10 @@ class SAAQPOps:
                           sc.g * m * sc.gy * torch.amax(E_G, dim=1)),
         )
         c_s = torch.maximum(
-            sc.c * E_c, torch.maximum(torch.amax(sc.y * E_y), sc.s * E_s)
+            sc.c * E_c, torch.maximum(max_yE, sc.s * E_s)
         )
         c_t = torch.maximum(
-            sc.c * self.Malpha * E_c, sc.g * m * sc.gy * torch.amax(E_G)
+            sc.c * self.Malpha * E_c, sc.g * m * sc.gy * max_EG
         )
         return torch.cat([c_u, c_y, c_s[None], c_t[None]])
 
@@ -352,10 +402,13 @@ class SAAQPOps:
         the per-sample contractions over K stay plain (K ~ 60 terms, a few
         ulps), it is the M = 1000-term accumulation that compensation
         removes. Cost: one (M, n, n) intermediate and log2(M) folds, paid
-        at refactorization only."""
+        at refactorization only. Sharded, each process forms its samples'
+        terms and the sums over M are two collectives: B, the u-t coupling
+        and the diagonal sums (n^2 + n + 2 entries), then C^T Dinv C
+        ((n+2)^2) and the Sherman-Morrison sums (n + 4)."""
         st, sc, m = self.st, self.scales, self.m
         data = self.data
-        n, M = st.n, st.M
+        n, M = st.n, self.Ml
         rho_f, rho_c, rho_y, rho_G, rho_s, rho_u = self._split_w(rho_vec)
         sigma_u, sigma_y, sigma_s, sigma_t = self._split_z(sigma_vec)
         dtype, device = self.dtype, self.device
@@ -380,24 +433,26 @@ class SAAQPOps:
             B = msum(torch.einsum("mkn,mk,mkp->mnp", data.G, wG, data.G))
         else:
             B = torch.einsum("mkn,mk,mkp->np", data.G, wG, data.G)
+        # per-sample rows G_i^T wG_i (M, n): reduced over M for the u-t
+        # coupling, kept per-sample as the y-v coupling C_u below
+        GtwG = torch.einsum("mkn,mk->mn", data.G, wG)
+        B, sum_GtwG, sum_y2, sum_rows = self._sum(
+            B, msum(GtwG), msum(rho_y * sc.y**2), msum(rowsum_wG))
         N_uu = (
             torch.diag(cost_scale * self.p_diag[:n] + sigma_u + rho_u)
             + data.F.T @ (rho_f[:, None] * data.F)
             + B
         )
-        # per-sample rows G_i^T wG_i (M, n): reduced over M for the u-t
-        # coupling, kept per-sample as the y-v coupling C_u below
-        GtwG = torch.einsum("mkn,mk->mn", data.G, wG)
-        N_ut = -sc.gy * msum(GtwG)
+        N_ut = -sc.gy * sum_GtwG
         # ss: sigma_s + c*P_ss + sum_i rho_y sc_y^2 + rho_s sc_s^2 + beta
         N_ss = (
             cost_scale * self.p_diag[n + M]
             + sigma_s
-            + msum(rho_y * sc.y**2)
+            + sum_y2
             + rho_s * sc.s**2
             + beta
         )
-        N_tt = sigma_t + beta * self.Malpha**2 + sc.gy**2 * msum(rowsum_wG)
+        N_tt = sigma_t + beta * self.Malpha**2 + sc.gy**2 * sum_rows
         N_st = beta * self.Malpha
 
         N_vv = torch.zeros(n + 2, n + 2, dtype=dtype, device=device)
@@ -426,13 +481,15 @@ class SAAQPOps:
                 CtDinvC = dsjit.ds_round(*dsjit.ds_sum(p, e, axis=0))
             else:
                 CtDinvC = C.T @ DinvC
-            one_DinvC = msum(DinvC)
-            denom = 1.0 + beta * msum(Dinv)
-            S = N_vv - (CtDinvC
-                        - (beta / denom) * torch.outer(one_DinvC, one_DinvC))
+            (CtDinvC,) = self._sum(CtDinvC)
             # the Sherman-Morrison denominator of the y-block solves is
             # loop-invariant per factorization (a plain sum, as in JAX)
-            denom_yy = 1.0 + beta * torch.sum(Dinv)
+            one_DinvC, sum_Dinv, sum_Dinv_yy = self._sum(
+                msum(DinvC), msum(Dinv), torch.sum(Dinv))
+            denom = 1.0 + beta * sum_Dinv
+            S = N_vv - (CtDinvC
+                        - (beta / denom) * torch.outer(one_DinvC, one_DinvC))
+            denom_yy = 1.0 + beta * sum_Dinv_yy
         chol_S = _jittered_cholesky(S)
         if self.kkt_chol_inverse:
             eye_v = torch.eye(n + 2, dtype=dtype, device=device)
@@ -454,20 +511,23 @@ class SAAQPOps:
         C64, beta64 = C.to(f64), beta.to(f64)
         Dinv = 1.0 / D.to(f64)
         DinvC = Dinv[:, None] * C64
-        one_DinvC = torch.sum(DinvC, dim=0)
-        denom = 1.0 + beta64 * torch.sum(Dinv)
-        S = N_vv.to(f64) - (C64.T @ DinvC - (beta64 / denom)
+        (CtDinvC,) = self._sum(C64.T @ DinvC)
+        one_DinvC, sum_Dinv = self._sum(torch.sum(DinvC, dim=0),
+                                        torch.sum(Dinv))
+        denom = 1.0 + beta64 * sum_Dinv
+        S = N_vv.to(f64) - (CtDinvC - (beta64 / denom)
                             * torch.outer(one_DinvC, one_DinvC))
         return S.to(self.dtype), denom
 
     def _solve_yy(self, D, beta, r, denom):
         """(D + beta 11^T)^-1 r via Sherman-Morrison."""
         Dinv_r = r / D
-        return Dinv_r - (beta * torch.sum(Dinv_r) / denom) / D
+        (sum_Dinv_r,) = self._sum(torch.sum(Dinv_r))
+        return Dinv_r - (beta * sum_Dinv_r / denom) / D
 
     def kkt_solve(self, factor, rhs, rho_vec, sigma_vec, cost_scale=1.0):
         S_op, C, D, beta, N_vv, denom_yy = factor
-        n, M = self.st.n, self.st.M
+        n, M = self.st.n, self.Ml
         r_y = rhs[n : n + M]
         r_v = torch.cat([rhs[:n], rhs[n + M :]])
 
@@ -479,7 +539,8 @@ class SAAQPOps:
         def solve_once(r_v, r_y):
             r_v, r_y = r_v.to(wt), r_y.to(wt)
             Nyy_inv_ry = self._solve_yy(D_w, beta_w, r_y, denom_yy)
-            rhs_v = r_v - C_w.T @ Nyy_inv_ry
+            (CtN,) = self._sum(C_w.T @ Nyy_inv_ry)
+            rhs_v = r_v - CtN
             if self.kkt_chol_inverse:
                 v = S_w @ rhs_v  # S_op = S^-1 (see factorize)
             else:
@@ -497,8 +558,9 @@ class SAAQPOps:
 
         def residual_factored(v, y):
             # N x through the stored blocks: N = [[N_vv, C^T], [C, D+b11^T]]
-            Nx_v = N_vv @ v + C.T @ y
-            Nx_y = C @ v + D * y + beta * torch.sum(y)
+            Cty, sum_y = self._sum(C.T @ y, torch.sum(y))
+            Nx_v = N_vv @ v + Cty
+            Nx_y = C @ v + D * y + beta * sum_y
             return torch.cat([r_v - Nx_v, r_y - Nx_y])
 
         v, y = solve_once(r_v, r_y)
@@ -537,14 +599,14 @@ def _jittered_cholesky(S):
 
 
 def make_ops(st: SAAQPStatic, data: SAAQPData, scp_iter: int,
-             cfg: SolverConfig) -> SAAQPOps:
+             cfg: SolverConfig, shard=None) -> SAAQPOps:
     """SAAQPOps carrying cfg's KKT and sweep knobs (solve_saa_qp's
     construction)."""
     return SAAQPOps(
         st, data, scp_iter, kkt_refine_iters=cfg.kkt_refine_iters,
         kkt_refine_mode=cfg.kkt_refine_mode,
         sweep_precision=cfg.sweep_precision,
-        kkt_chol_inverse=cfg.kkt_chol_inverse,
+        kkt_chol_inverse=cfg.kkt_chol_inverse, shard=shard,
     )
 
 
@@ -559,11 +621,14 @@ def solve_saa_qp(
     ruiz_iters: int = 5,
     rho0=None,
     eps_scale=None,
+    shard=None,
 ) -> admm.QPSolution:
-    """Solve one SCP subproblem with the structured operator."""
-    ops = make_ops(st, data, scp_iter, cfg)
+    """Solve one SCP subproblem with the structured operator (under
+    `shard`, this process's share of a sample-sharded one: x, y and z hold
+    its entries, the replicated ones identical on every process)."""
+    ops = make_ops(st, data, scp_iter, cfg, shard)
     _, q = build_objective(st, data)
-    l, u = build_bounds(st, data, scp_iter)
+    l, u = build_bounds(st, data, scp_iter, shard)
     scaling = admm.ruiz_equilibrate(ops, q, l, u, iters=ruiz_iters) if scale else None
     return admm.admm_solve(ops, q, l, u, cfg, x0=x0, y0=y0, scaling=scaling,
                            rho0=rho0, eps_scale=eps_scale)

@@ -17,6 +17,13 @@ runs the ADMM with double-single iterates of ops/admm_ds.py.
 Entry points: `solve` (with mid-solve checkpoint and resume), `solve_many`
 (independent instances one after another) and `solve_instrumented` (the
 reference's define/solve timing harness).
+
+Sample-sharded runs (`group`, a torch.distributed process group): each
+process passes its slice of the omegas (parallel/distributed.py), the
+define phase stays local, the QP is solved sample-sharded
+(ops/saa_qp.py) and the controls, t, the L2 errors and the Monte-Carlo
+statistics come out the same on every process; `xs` holds this process's
+samples. Only the 'admm' backend runs sharded so far (ROADMAP, Queue A).
 """
 
 from __future__ import annotations
@@ -48,6 +55,7 @@ from riskaversetrajopt_torch.ops.saa_qp import (
     pack_saa_qp_data,
     solve_saa_qp,
 )
+from riskaversetrajopt_torch.parallel.distributed import SampleShard, group_size
 from riskaversetrajopt_torch.utils import checkpoint as ckpt
 from riskaversetrajopt_torch.utils.profiling import annotate
 
@@ -115,11 +123,17 @@ class SAATrajOpt:
         baseline_pad: float = 0.0,
         dtype=torch.float64,
         device=None,
+        group=None,
     ):
         if qp_backend in _REFUSED:
             raise ValueError(_REFUSED[qp_backend])
         if qp_backend not in _BACKENDS:
             raise ValueError(f"unknown qp backend {qp_backend!r}")
+        if group is not None and qp_backend != "admm":
+            raise ValueError(
+                f"{qp_backend!r} does not run sample-sharded yet: only 'admm' "
+                "does (ROADMAP.md, Queue A); drop `group` to solve on one "
+                "process")
         if qp_backend in _FUSED and dtype != torch.float32:
             raise ValueError(
                 f"{qp_backend!r} runs a float32 fused kernel; pass "
@@ -148,6 +162,9 @@ class SAATrajOpt:
             )
         self.dtype = dtype
         self.device = resolve_device(device)
+        # the process group over which the samples are split (None: this
+        # process holds them all)
+        self.group = group
         self.model = model.to(self.device, dtype)
         scn = model.scn
         n = model.S * model.n_u
@@ -186,9 +203,17 @@ class SAATrajOpt:
     def _static_for(self, M: int) -> SAAQPStatic:
         return self.static._replace(M=M)
 
-    def _define(self, us_prev, omegas, alpha):
+    def _shard(self, M_local: int):
+        """This process's SampleShard of a sharded solve whose omegas hold
+        M_local samples here, or None."""
+        if self.group is None:
+            return None
+        return SampleShard(M_local * group_size(self.group), self.group)
+
+    def _define(self, us_prev, omegas, alpha, shard=None):
         lin = linearize_batch(self.model, us_prev, omegas)
-        return pack_saa_qp_data(lin, us_prev.reshape(-1), self.p_diag_u, alpha)
+        return pack_saa_qp_data(lin, us_prev.reshape(-1), self.p_diag_u, alpha,
+                                shard)
 
     def _warm_rho(self, warm, scp_iter: int):
         """The previous QP's adapted rho (OSQP keeps rho in its workspace
@@ -202,7 +227,7 @@ class SAATrajOpt:
                                 device=self.device)
         return warm[2]
 
-    def _solve_qp(self, st, data, scp_iter: int, warm=None):
+    def _solve_qp(self, st, data, scp_iter: int, warm=None, shard=None):
         x0 = warm[0] if warm is not None else None
         y0 = warm[1] if warm is not None else None
         rho0 = self._warm_rho(warm, scp_iter)
@@ -248,7 +273,7 @@ class SAATrajOpt:
             eps_scale = (self.admm_cfg.eps_sched_factor
                          if scp_iter < self.admm_cfg.eps_sched_iters else 1.0)
         return solve_saa_qp(st, data, scp_iter, self.admm_cfg, x0=x0, y0=y0,
-                            rho0=rho0, eps_scale=eps_scale)
+                            rho0=rho0, eps_scale=eps_scale, shard=shard)
 
     def _ipm_solve(self, st, data, scp_iter: int):
         """The interior-point solve of one SCP subproblem."""
@@ -304,6 +329,9 @@ class SAATrajOpt:
             M = omegas[0].shape[0]
         if checkpoint_path is None:
             return self._solve_core(omegas, alpha, M)
+        if self.group is not None:
+            raise ValueError("checkpoint/resume of a sample-sharded solve is "
+                             "not supported")
         start_iter, resume = self._load_checkpoint(checkpoint_path)
         return self._solve_core(
             omegas, alpha, M, start_iter=start_iter,
@@ -363,26 +391,28 @@ class SAATrajOpt:
     def _solve_core(self, omegas, alpha, M: int, start_iter: int = 0,
                     ckpt=None, resume=None, phase=None,
                     rho_backends=_RHO_BACKENDS) -> SCPResult:
-        """The SCP loop. `phase(name)`, where given, is a context manager
-        around each iteration's "define" and "solve" (solve_instrumented's
-        timer); `rho_backends` lists the backends whose adapted rho is
-        carried into the next QP."""
+        """The SCP loop over omegas of M samples (this process's, sharded).
+        `phase(name)`, where given, is a context manager around each
+        iteration's "define" and "solve" (solve_instrumented's timer);
+        `rho_backends` lists the backends whose adapted rho is carried into
+        the next QP."""
         phase = phase or (lambda name: contextlib.nullcontext())
         omegas = self._cast_omegas(omegas)
         alpha = torch.as_tensor(alpha, dtype=self.dtype, device=self.device)
-        st = self._static_for(M)
+        shard = self._shard(M)
+        st = self._static_for(M if shard is None else shard.M)
         n = st.n
         us_prev = self.model.initial_guess()
-        warm = self._cold_warm(st)
+        warm = self._cold_warm(st._replace(M=M))
         if resume is not None:
             us_prev, warm = resume
         t_risk = warm[0][-1]
         l2s, qp_iters, qp_solved, us_hist = [], [], [], []
         for scp_iter in range(start_iter, self.scp_cfg.num_iters):
             with phase("define"):
-                data = self._define(us_prev, omegas, alpha)
+                data = self._define(us_prev, omegas, alpha, shard)
             with phase("solve"):
-                sol = self._solve_qp(st, data, scp_iter, warm)
+                sol = self._solve_qp(st, data, scp_iter, warm, shard)
             us = sol.x[:n].reshape(self.model.S, self.model.n_u).to(self.dtype)
             l2s.append(l2_error_us(us, us_prev))
             t_risk = sol.x[-1]
@@ -428,13 +458,15 @@ class SAATrajOpt:
         sync = (torch.cuda.synchronize if self.device.type == "cuda"
                 else lambda device: None)
         # warm-up pass (reference: car/driving.py:474-480)
-        st = self._static_for(M)
+        shard = self._shard(M)
+        st = self._static_for(M if shard is None else shard.M)
         us0 = self.model.initial_guess()
         om = self._cast_omegas(omegas)
         a = torch.as_tensor(alpha, dtype=self.dtype, device=self.device)
-        self._define(us0, om, a)
+        self._define(us0, om, a, shard)
         sync(self.device)
-        self._solve_qp(st, self._define(us0, om, a), 0, self._cold_warm(st))
+        self._solve_qp(st, self._define(us0, om, a, shard), 0,
+                       self._cold_warm(st._replace(M=M)), shard)
         sync(self.device)
 
         times = {"define": [], "solve": []}
@@ -449,6 +481,9 @@ class SAATrajOpt:
 
         start_iter, resume, ckpt = 0, None, None
         if checkpoint_path is not None:
+            if self.group is not None:
+                raise ValueError("checkpoint/resume of a sample-sharded "
+                                 "solve is not supported")
             start_iter, resume = self._load_checkpoint(checkpoint_path)
             ckpt = (checkpoint_path, 1)
         res = self._solve_core(omegas, alpha, M, start_iter, ckpt, resume,
@@ -470,13 +505,18 @@ class SAATrajOpt:
         constraint minus tol <= 1e-6 => safe; returns the safe fraction, the
         AVaR of the max-constraint statistic and the control cost. The
         default tol is OSQP_TOL, as car/driving.py:636 and
-        drone/drone_risk.py:660 feed `max(g) - OSQP_TOL` to both tests."""
+        drone/drone_risk.py:660 feed `max(g) - OSQP_TOL` to both tests.
+        Sharded (`group`), `omegas` are this process's slice and the M
+        constraint values are gathered on every process."""
         model = self.model
         us = torch.as_tensor(us).to(dtype=self.dtype, device=self.device)
         omegas = self._cast_omegas(omegas)
         tol = model.scn.osqp_tol if tol is None else tol
         xs = rollout_batch(model, us, omegas)
         max_cons = torch.amax(model.ineq_constraints(xs, omegas), dim=-1) - tol
+        shard = self._shard(max_cons.shape[0])
+        if shard is not None:
+            max_cons = shard.gather(max_cons)
         safe = torch.mean((max_cons <= 1e-6).to(self.dtype))
         return {
             "safe_frac": safe,

@@ -89,12 +89,6 @@ def test_converged_solution_matches(problem, polish):
     _assert_same_solution(j, t, rtol=1e-8)
 
 
-def test_anderson_raises(problem):
-    _, _, tst, tdata = problem
-    with pytest.raises(NotImplementedError, match="Anderson"):
-        tqp.solve_saa_qp(tst, tdata, 3, TSolverConfig(anderson_depth=3))
-
-
 @pytest.mark.parametrize("alpha", [0.05, 0.2, 0.5])
 def test_var_and_avar_match(alpha):
     """A sort and a mean: identical up to the mean's summation order."""

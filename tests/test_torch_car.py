@@ -428,6 +428,41 @@ def test_three_phase_kernel_algebra_free_rows(spb):
             assert float(torch.max(torch.abs(a - b))) <= 1e-10 * scale, name
 
 
+@pytest.mark.parametrize("scp_iter", [0, 3])
+def test_free_row_check_sees_the_free_row_algebra(scp_iter):
+    """kernel_checks.free_row_errs, the card's check of the free-row form
+    (chip_smoke.py phase 7), on the car's structure at M=12: at scp_iter 0
+    and at 3 with the free-row form forced (sm_free set; the form is exact
+    for any structure). Its float64 side is the kernel's algebra: one
+    float64 `_three_phase_chunk` iteration from each built state equals
+    free_row_ref to 1e-10 there. A float32 model of the kernel (the three
+    phases in float32) reads under a fifth of FREE_ROW_TOL (5.1e-4 at most
+    here), and each planted fault of the free-row branch at least ten
+    times it (0.12 at least)."""
+    from riskaversetrajopt_torch.ops.cuda import kernel_checks as kc
+    from tests.test_torch_saa_admm import _three_phase_chunk
+
+    _, _, _, p, d = _car_scaled(scp_iter)
+    p = p._replace(sm_free=torch.tensor(1.0))
+    blocks = [slice(m0, min(m0 + 5, d.M)) for m0 in range(0, d.M, 5)]
+    p64 = type(p)(*(x.double() for x in p))
+    for seed in kc.FREE_ROW_SEEDS:
+        s = kc.free_row_state(p, seed)
+        ref = kc.free_row_ref(p, s, d)
+        out = _three_phase_chunk(p64, type(s)(*(x.double() for x in s)), d,
+                                 1, blocks)
+        for name, a, b in zip(ref._fields, out, ref):
+            scale = max(float(torch.max(torch.abs(b))), 1.0)
+            assert float(torch.max(torch.abs(a - b))) <= 1e-10 * scale, name
+    model = kc.free_row_errs(
+        p, d, lambda s: _three_phase_chunk(p, s, d, 1, blocks))
+    assert model <= 0.2 * kc.FREE_ROW_TOL, model
+    for fault in ("x1_sign", "kappa2_no_c2", "cv_no_c2"):
+        err = kc.free_row_errs(
+            p, d, lambda s: _three_phase_chunk(p, s, d, 1, blocks, fault))
+        assert err >= 10 * kc.FREE_ROW_TOL, (fault, err)
+
+
 def test_free_y_marks_only_the_car_gated_structure():
     """SAAQPOps.free_y (the float64 y-block elimination of the float32
     'admm' repair) is set exactly where some y meets the CVaR row alone:

@@ -289,6 +289,30 @@ def test_kernel_matches_plain_on_the_car(kernel, scp_iter):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("scp_iter", [0, 3])
+@pytest.mark.parametrize("kernel", ["b1", "highest", "high"])
+def test_free_row_form_on_the_car(kernel, scp_iter):
+    """The free-row form of B1 and of B2 ("highest", "high") on the car's
+    structure at M=50, at scp_iter 0 and at 3 with the form forced
+    (sm_free set): one kernel iteration from each of
+    kernel_checks.free_row_state's states against the float64 plain
+    iteration, on the CVaR row, to kernel_checks.FREE_ROW_TOL
+    (kernel_checks.free_row_errs; planted faults of the branch read
+    tenfold and more above it, PERF.md)."""
+    dev = _cuda()
+    p, d = _scaled_problem(dev, M=50, scp_iter=scp_iter, car=True)
+    p = p._replace(sm_free=torch.tensor(1.0))
+    if kernel == "b1":
+        step = lambda s: tk.admm_chunk(p, s, d, 1)  # noqa: E731
+    else:
+        pf = tkf.to_f(p, d)
+        step = lambda s: tkf.f_to_state(  # noqa: E731
+            tkf.admm_chunk_f(pf, tkf.state_to_f(s, d), d, 1, kernel), d)
+    err = kc.free_row_errs(p, d, step)
+    assert err <= kc.FREE_ROW_TOL, err
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("model", ["hopper", "drone_gaussian"])
 def test_nlp_cuda_graph_replay_is_the_eager_solve(model):
     """ops/nlp_ipm.solve_nlp on the card replays CUDA graphs of its

@@ -19,7 +19,8 @@ M = 50
 
 
 @pytest.mark.parametrize(
-    "name", ["DroneScenario", "CarScenario", "SCPConfig", "SolverConfig"])
+    "name", ["DroneScenario", "CarScenario", "SCPConfig", "SolverConfig",
+             "PDIPConfig", "MeshConfig"])
 def test_config_fields_and_defaults_match(name):
     """Field names, order and defaults equal the JAX dataclasses exactly."""
     j = [(f.name, f.default) for f in dataclasses.fields(getattr(jconfig, name))]

@@ -121,7 +121,7 @@ def test_one_iter_ref_matches(setups, scp_iter, dtype, tol):
                                    atol=tol * np.max(np.abs(b)), err_msg=name)
 
 
-def _three_phase_chunk(p, s, d, chunk, blocks):
+def _three_phase_chunk(p, s, d, chunk, blocks, fault=None):
     """`chunk` iterations as the CUDA kernel's cooperative grid runs them
     (csrc/saa_admm_common.cuh), in plain torch; `blocks` are slices of
     contiguous samples, possibly empty. Phase 1: the previous iteration's
@@ -137,7 +137,12 @@ def _three_phase_chunk(p, s, d, chunk, blocks):
     w, the partial row has X1 = sum (cy_hat a y - wD B1) and
     Cbar^T (a y - Dinv B1) (a = Dinv sigma), the blocks sum wD cv with
     cv = Cbar v - beta cy_hat (cs_hat s_t + ct_hat t_t), and y_t =
-    a y - Dinv (B1 + cv) + wD kappa2."""
+    a y - Dinv (B1 + cv) + wD kappa2. `fault` plants one of the faults of
+    kernel_ab.py's FAULTS in the free-row form: "x1_sign" (+ wD B1 in X1),
+    "kappa2_no_c2" or "cv_no_c2" (beta c2 dropped there)."""
+    sign = 1.0 if fault == "x1_sign" else -1.0
+    c2_k = 0.0 if fault == "kappa2_no_c2" else 1.0
+    c2_cv = 0.0 if fault == "cv_no_c2" else 1.0
     n, n_fc = d.n, d.n_fc
     al, sig, beta, denom = p.alpha_relax, p.sigma, p.sm_beta, p.sm_denom
     free = bool(p.sm_free)
@@ -163,7 +168,8 @@ def _three_phase_chunk(p, s, d, chunk, blocks):
             w_y = p.rv_y[b] * z_y[b] - yd_y[b]
             if free:
                 r_y[b] = p.yd_hat[b] * w_y + torch.sum(p.eGy[b] * w, dim=1)
-                x1 = torch.sum(p.cy_hat[b] * a[b] * y[b] - p.wD[b] * r_y[b])
+                x1 = torch.sum(p.cy_hat[b] * a[b] * y[b]
+                               + sign * p.wD[b] * r_y[b])
                 cd = p.Cbar[b].T @ (a[b] * y[b] - p.Dinv[b] * r_y[b])
             else:
                 r_y[b] = (sig * y[b] + p.cy_hat[b] * w_c - p.yd_hat[b] * w_y
@@ -192,7 +198,7 @@ def _three_phase_chunk(p, s, d, chunk, blocks):
         u_t, s_t, t_t = v[:n], v[n], v[n + 1]
         c2 = p.cs_hat * s_t + p.ct_hat * t_t
         if free:
-            cv = p.Cbar @ v - beta * p.cy_hat * c2
+            cv = p.Cbar @ v - c2_cv * beta * p.cy_hat * c2
             q = r_y + cv
             wq = sum(torch.sum(p.wD[b] * cv[b]) for b in blocks)
         else:
@@ -209,7 +215,7 @@ def _three_phase_chunk(p, s, d, chunk, blocks):
         t = al * t_t + (1 - al) * t
         # phase 3: coef2, then each block's rows and its sum cy_hat y_t
         if free:
-            coef2 = -(w_c - beta * c2 - beta * (pr[n + 2] - wq)) / denom
+            coef2 = -(w_c - c2_k * beta * c2 - beta * (pr[n + 2] - wq)) / denom
         else:
             coef2 = beta * wq / denom
         cy_parts = []
