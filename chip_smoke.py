@@ -108,6 +108,19 @@ it ends; a group that fails, or outlives GROUP_TIMEOUT, fails the script.
      solve to 1e-8; collectives per ADMM iteration; (c) the native oracle
      (g++-built native/qp_admm.cpp) against solve_dense_qp on one dense QP;
      (d) torch_entry.entry() and dryrun_multichip over the host's cards.
+ 13. the other backends sample-sharded, which reach neither kernel (both
+     counts held to 0 around each run; (a)-(c) in the "ipm" group after
+     phase 9, (d) in the "ds" group after phase 10): (a) the drone SCP at
+     M=1000 through float64 'ipm', float32 'hybrid' and float32 'admm-ir'
+     (the parity config) on a one-rank NCCL group, cut as 12(b)'s, each
+     bit for bit its unsharded run; collectives per QP iteration; (b)
+     phase 1's QP through the IPM on two ranks sharing the card, held to
+     phase 9(a)'s bounds on the unsharded operator and its objective, u
+     reported beside the unsharded solve of the samples in reverse order;
+     (c) a one-rank sharded 'admm' SCP at M=50 checkpointed and resumed:
+     the file the unsharded one, the resumed run the uninterrupted one,
+     bit for bit; (d) float32 'admm-ds' (phase 10(b)'s run) and float64
+     '_hybrid-prox' (M=50, phase 9(d)'s config) as (a).
 Then one JSON line describing each kernel (with its launches on every path
 above), the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}.
@@ -1164,6 +1177,25 @@ def no_kernel_run(torch, dev, fn, what):
     return out, wall, counts
 
 
+def kkt_stats(torch, st, data, x, y):
+    """The primal violation, dual residual, its scale max(|A^T y|, |q|) and
+    objective of (x, y) on the whole QP of (st, data) at scp_iter 3
+    (tests/test_ipm.py:101-135's measures)."""
+    from riskaversetrajopt_torch.ops.saa_qp import (
+        SAAQPOps, build_bounds, build_objective,
+    )
+
+    ops = SAAQPOps(st, data, 3)
+    p_diag, q = build_objective(st, data)
+    l, u = build_bounds(st, data, 3)
+    amax = lambda v: float(torch.max(torch.abs(v)))  # noqa: E731
+    Ax = ops.matvec_A(x)
+    Aty = ops.rmatvec_A(y)
+    prim = max(float(torch.max(Ax - u)), float(torch.max(l - Ax)), 0.0)
+    return (prim, amax(p_diag * x + q + Aty), max(amax(Aty), amax(q)),
+            float(0.5 * torch.sum(p_diag * x * x) + q @ x))
+
+
 def phase9_ipm_qp(torch, dev, opt64, m=M):
     """(a) The IPM on phase 1's QP (a real define phase at the initial
     guess, scp_iter 3, the fixture omegas): in float64 at tol 1e-5
@@ -1188,23 +1220,17 @@ def phase9_ipm_qp(torch, dev, opt64, m=M):
     data64 = opt64._define(opt64.model.initial_guess(), om, alpha)
     data32 = type(data64)(*(x.to(torch.float32) for x in data64))
     st = opt64._static_for(m)
-    amax = lambda v: float(torch.max(torch.abs(v)))  # noqa: E731
     stats, sols = {}, {}
     for name, data, cfg in (("f64", data64, IPMConfig(tol=1e-5, max_iter=100)),
                             ("f32", data32, IPMConfig(tol=1e-4, max_iter=30))):
         ops = SAAQPOps(st, data, 3)
-        p_diag, q = build_objective(st, data)
+        _, q = build_objective(st, data)
         l, u = build_bounds(st, data, 3)
         sol, wall, _ = no_kernel_run(
             torch, dev, lambda: solve_qp_ipm(ops, q, l, u, n_eq=st.n_fc,
                                              cfg=cfg), f"{name} IPM")
-        Ax = ops.matvec_A(sol.x)
-        Aty = ops.rmatvec_A(sol.y)
-        prim = max(float(torch.max(Ax - u)), float(torch.max(l - Ax)), 0.0)
-        dual = amax(p_diag * sol.x + q + Aty)
-        d_scale = max(amax(Aty), amax(q))
+        prim, dual, d_scale, obj = kkt_stats(torch, st, data, sol.x, sol.y)
         finite = all(bool(torch.isfinite(v).all()) for v in (sol.x, sol.y))
-        obj = float(0.5 * torch.sum(p_diag * sol.x * sol.x) + q @ sol.x)
         sols[name] = sol
         stats[name] = {"iters": sol.iters, "solved": sol.solved,
                        "ms": wall * 1e3, "prim": prim,
@@ -1863,6 +1889,9 @@ def phase11(torch, dev, drone_gauss):
 # certify, in 18325 and 8625 iterations, 76 s together on an H100, PERF.md)
 SHARD_QP_ITERS, SHARD_SCP_ITERS, SHARD_SCP_CAP = 200, 3, 1000
 AA_DEPTH, AA_CAP = 5, 3000
+# phase 13(c), (d): the sample count of the one-rank sharded checkpoint and
+# of '_hybrid-prox' (phase 9(d)'s)
+SHARD_CKPT_M = 50
 
 
 def phase12_anderson(torch, dev, opt64, res64, cap=AA_CAP):
@@ -1908,6 +1937,14 @@ def phase12_anderson(torch, dev, opt64, res64, cap=AA_CAP):
     return out
 
 
+def bitwise_scp(torch, a, b):
+    """Whether two SCP results have the same controls, iteration counts
+    and flags, bit for bit."""
+    return all(torch.equal(x.cpu(), y.cpu()) for x, y in (
+        (a.us_history, b.us_history), (a.qp_iters, b.qp_iters),
+        (a.qp_solved, b.qp_solved)))
+
+
 def phase12_shard_scp(torch, dev, cap=SHARD_SCP_CAP):
     """(b1) The sample-sharded float64 'admm' drone SCP on a one-rank NCCL
     group (M=1000, the fixture omegas, the golden config cut to
@@ -1947,8 +1984,7 @@ def phase12_shard_scp(torch, dev, cap=SHARD_SCP_CAP):
                 "sharded 'admm' SCP")
     finally:
         pd.shutdown()
-    bitwise = (torch.equal(res.us_history, ref.us_history)
-               and torch.equal(res.qp_iters, ref.qp_iters))
+    bitwise = bitwise_scp(torch, res, ref)
     diff = float(torch.max(torch.abs(res.us_history - ref.us_history)))
     iters = int(res.qp_iters.sum())
     st = pd.collective_summary(calls, iters)
@@ -1976,72 +2012,100 @@ def free_port():
     return port
 
 
-def shard_qp(torch, dev, shard=None, group=None):
+def shard_qp(torch, dev, shard=None, group=None, backend="admm",
+             reverse=False):
     """Phase 1's QP (a define phase at the initial guess, scp_iter 3, the
-    fixture omegas; under `shard` this process's samples) solved by float64
-    'admm' for SHARD_QP_ITERS iterations (eps 1e-14, polish off, the
-    driver's KKT config). Returns (solution, wall seconds, M_local)."""
+    fixture omegas, in reverse order with `reverse`; under `shard` this
+    process's samples) solved by float64 'admm' for SHARD_QP_ITERS
+    iterations (eps 1e-14, polish off, the driver's KKT config), or with
+    `backend` "ipm" by the IPM of phase 9(a) (tol 1e-5, cap 100). Returns
+    (solution, wall seconds, static, data)."""
     from riskaversetrajopt_torch.core.config import DroneScenario, SolverConfig
     from riskaversetrajopt_torch.models.drone import DroneModel
+    from riskaversetrajopt_torch.ops.ipm import IPMConfig, solve_qp_ipm
     from riskaversetrajopt_torch.parallel.distributed import shard_samples_global
-    from riskaversetrajopt_torch.ops.saa_qp import solve_saa_qp
+    from riskaversetrajopt_torch.ops.saa_qp import (
+        SAAQPOps, build_bounds, build_objective, solve_saa_qp,
+    )
     from riskaversetrajopt_torch.scp.driver import SAATrajOpt
 
     opt = SAATrajOpt(DroneModel(DroneScenario(M=M), device=dev),
                      scp_cfg=golden_scp_config(), device=dev, group=group)
-    om = load_omegas(torch, torch.float64, dev)
+    om = first_omegas(torch, torch.float64, dev, M)
+    if reverse:
+        om = type(om)(*(x.flip(0) for x in om))
     if shard is not None:
         om = shard_samples_global(om, M, group)
     alpha = torch.tensor(ALPHA, dtype=torch.float64, device=dev)
     data = opt._define(opt.model.initial_guess(), om, alpha, shard)
+    st = opt._static_for(M)
     cfg = SolverConfig(eps_abs=1e-14, eps_rel=1e-14, max_iter=SHARD_QP_ITERS,
                        polish=False, kkt_refine_iters=1)
+    _, q = build_objective(st, data)
+    l, u = build_bounds(st, data, 3, shard)
     sync(torch, dev)
     t0 = time.perf_counter()
-    sol = solve_saa_qp(opt._static_for(M), data, 3, cfg, shard=shard)
+    if backend == "ipm":
+        sol = solve_qp_ipm(SAAQPOps(st, data, 3, shard=shard), q, l, u,
+                           n_eq=st.n_fc, cfg=IPMConfig(tol=1e-5, max_iter=100))
+    else:
+        sol = solve_saa_qp(st, data, 3, cfg, shard=shard)
     sync(torch, dev)
-    return sol, time.perf_counter() - t0, om[0].shape[0]
+    return sol, time.perf_counter() - t0, st, data
 
 
 def shard_worker(argv):
-    """One of phase 12's two ranks on the card (gloo, CUDA tensors): its
-    half of phase 1's QP; prints its full x (y gathered), iterations, time,
-    collectives and both kernels' counts as one JSON line."""
+    """One of the two ranks of phase 12(b2) or 13(b) on the card (gloo,
+    CUDA tensors): its half of phase 1's QP (`--backend` admm or ipm);
+    prints the global x and y (gathered after the solve), iterations,
+    solved, time, the solve's collectives and both kernels' counts as one
+    JSON line."""
     import torch
 
     sys.path.insert(0, str(REPO))
+    from riskaversetrajopt_torch.ops.saa_qp import gather_warm
     from riskaversetrajopt_torch.parallel import distributed as pd
 
     init, rank = argv[argv.index("--init") + 1], int(argv[argv.index("--rank") + 1])
-    dev = torch.device("cuda:0")
+    backend = argv[argv.index("--backend") + 1]
+    dev = torch.device(argv[argv.index("--device") + 1])
     pd.initialize(init, 2, rank, backend="gloo", device=dev)
     torch.backends.cuda.matmul.allow_tf32 = False
     import torch.distributed as dist
 
     shard = pd.SampleShard(M, dist.group.WORLD)
     with pd.audit() as calls:
-        sol, wall, ml = shard_qp(torch, dev, shard, dist.group.WORLD)
-        n = sol.x.shape[0] - ml - 2
-        x = torch.cat([sol.x[:n], shard.gather(sol.x[n:n + ml]),
-                       sol.x[n + ml:]])
+        sol, wall, st, _ = shard_qp(torch, dev, shard, dist.group.WORLD,
+                                    backend)
+    x, y = gather_warm(st, shard, sol.x, sol.y)
     counts = [c.launches for c in kernel_counters()]
     print("SHARD_OK " + json.dumps({
-        "rank": rank, "x": x.cpu().tolist(), "iters": sol.iters, "s": wall,
+        "rank": rank, "x": x.cpu().tolist(), "y": y.cpu().tolist(),
+        "iters": sol.iters, "solved": sol.solved, "s": wall,
         "collectives": pd.collective_summary(calls, sol.iters),
         "kernel_launches": counts}), flush=True)
     pd.shutdown()
     return 0
 
 
-def phase12_two_ranks(torch, dev):
-    """(b2) Phase 1's QP at M=1000 on two ranks sharing the card (gloo with
-    CUDA tensors, 500 samples each), SHARD_QP_ITERS iterations, against the
-    unsharded solve of the same count: both ranks bit for bit alike, the
-    state within 1e-8 of (1 + |x|); collectives per iteration."""
+def two_rank_qp(torch, dev, backend):
+    """Phase 1's QP at M=1000 through `backend` on two ranks sharing the
+    card (gloo with CUDA tensors, 500 samples each, this script run as
+    `--shard-worker`) against the unsharded solve, both ranks bit for bit
+    alike; collectives per iteration. "admm" (SHARD_QP_ITERS iterations, a
+    contraction): the state within 1e-8 of (1 + |x|). "ipm": the IPM on
+    this QP moves u by ~1e-2 under any change of the order of its sums
+    (the unsharded solve of the samples in reverse order too: a nearly
+    flat objective in u at tol 1e-5), so the gathered (x, y) is held to
+    phase 9(a)'s bounds on the unsharded operator (certified, primal <=
+    1e-6, dual / d_scale < 1e-4, the objective within 1e-4 relative of the
+    unsharded solve's); u's distance and the objective's from the unsharded
+    solve are reported beside the reversed-order solve's."""
     init = f"tcp://localhost:{free_port()}"
     procs = [subprocess.Popen(
         [sys.executable, str(REPO / "chip_smoke.py"), "--shard-worker",
-         "--init", init, "--rank", str(r)],
+         "--init", init, "--rank", str(r), "--backend", backend,
+         "--device", str(dev)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for r in range(2)]
     outs = []
@@ -2059,26 +2123,247 @@ def phase12_two_ranks(torch, dev):
         if p.returncode != 0 or not line:
             raise AssertionError(f"rank {r} failed:\n{out[-3000:]}")
         res.append(json.loads(line[-1][len("SHARD_OK "):]))
-    if res[0]["x"] != res[1]["x"]:
+    if res[0]["x"] != res[1]["x"] or res[0]["y"] != res[1]["y"]:
         raise AssertionError("the two ranks hold different solutions")
     if any(any(r["kernel_launches"]) for r in res):
         raise AssertionError("a rank launched a fused kernel")
-    sol, wall, _ = no_kernel_run(torch, dev, lambda: shard_qp(torch, dev),
-                                 "unsharded QP")
+    sol, wall, _ = no_kernel_run(
+        torch, dev, lambda: shard_qp(torch, dev, backend=backend),
+        f"unsharded {backend} QP")
     x = sol[0].x
     xs = torch.tensor(res[0]["x"], dtype=torch.float64, device=dev)
-    rel = float(torch.max(torch.abs(xs - x) / (1 + torch.abs(x))))
+
+    def rel(a, b):
+        return float(torch.max(torch.abs(a - b) / (1 + torch.abs(b))))
+
     st = res[0]["collectives"]
-    log(f"phase 1's QP on two ranks sharing the card (gloo, {M // 2} samples "
-        f"each), {res[0]['iters']} ADMM iterations: {res[0]['s'] * 1e3:.1f} ms "
-        f"(unsharded {sol[1] * 1e3:.1f} ms), ranks bit for bit alike, "
-        f"max |x - x_unsharded| / (1 + |x|) {rel:.3e}; collectives "
+    out = {"ms": res[0]["s"] * 1e3, "unsharded_ms": sol[1] * 1e3,
+           "iters": res[0]["iters"], "unsharded_iters": sol[0].iters,
+           "max_rel_err": rel(xs, x), "collectives": st,
+           "kernel_launches": [sum(r["kernel_launches"][k] for r in res)
+                               for k in range(2)]}
+    log(f"phase 1's QP through {backend!r} on two ranks sharing the card "
+        f"(gloo, {M // 2} samples each), {res[0]['iters']} iterations "
+        f"(unsharded {sol[0].iters}): {res[0]['s'] * 1e3:.1f} ms (unsharded "
+        f"{sol[1] * 1e3:.1f} ms), ranks bit for bit alike, max |x - "
+        f"x_unsharded| / (1 + |x|) {out['max_rel_err']:.3e}; collectives "
         f"{st['calls_per_iter']:.2f} and {st['bytes_per_iter']:.0f} B per "
-        f"ADMM iteration, largest {st['max_elements']} elements")
-    if rel > 1e-8:
-        raise AssertionError(f"two-rank QP {rel:.3e} from the unsharded one")
-    return {"ms": res[0]["s"] * 1e3, "unsharded_ms": sol[1] * 1e3,
-            "iters": res[0]["iters"], "max_rel_err": rel, "collectives": st}
+        f"iteration, largest {st['max_elements']} elements")
+    if backend == "admm":
+        if out["max_rel_err"] > 1e-8:
+            raise AssertionError(f"two-rank QP {out['max_rel_err']:.3e} "
+                                 "from the unsharded one")
+        return out
+    n = sol[2].n
+    ys = torch.tensor(res[0]["y"], dtype=torch.float64, device=dev)
+    prim, dual, d_scale, obj = kkt_stats(torch, sol[2], sol[3], xs, ys)
+    *_, obj_u = kkt_stats(torch, sol[2], sol[3], x, sol[0].y)
+    rev, _, st_r, data_r = shard_qp(torch, dev, backend=backend,
+                                    reverse=True)
+    *_, obj_r = kkt_stats(torch, st_r, data_r, rev.x, rev.y)
+    out.update(prim=prim, dual_over_scale=dual / d_scale,
+               objective_rel_diff=abs(obj - obj_u) / abs(obj_u),
+               objective_rel_diff_reversed_order=abs(obj_r - obj_u) / abs(obj_u),
+               u_rel_err=rel(xs[:n], x[:n]),
+               u_rel_err_reversed_order=rel(rev.x[:n], x[:n]))
+    log(f"  two ranks: solved {res[0]['solved']}, primal violation "
+        f"{prim:.3e}, dual / d_scale {dual / d_scale:.3e}; from the "
+        f"unsharded solve: objective {out['objective_rel_diff']:.3e} "
+        f"relative, u {out['u_rel_err']:.3e}; the unsharded solve of the "
+        f"samples in reverse order ({rev.iters} iterations): objective "
+        f"{out['objective_rel_diff_reversed_order']:.3e}, u "
+        f"{out['u_rel_err_reversed_order']:.3e}")
+    if not (res[0]["solved"] and prim <= 1e-6 and dual / d_scale < 1e-4
+            and out["objective_rel_diff"] <= 1e-4):
+        raise AssertionError(f"two-rank IPM QP checks: {out}")
+    return out
+
+
+def phase12_two_ranks(torch, dev):
+    """(b2) Phase 1's QP through 'admm' on two ranks sharing the card."""
+    return two_rank_qp(torch, dev, "admm")
+
+
+def shard_scp_runs(torch, group):
+    """(backend, dtype, samples, SCP config, SAATrajOpt keywords) of the
+    one-rank sharded SCPs of phase 13 in the phase `group`. "ipm", (a):
+    float64 'ipm', float32 'hybrid' (phase 3's solver config) and float32
+    'admm-ir' (parity_config) at M=1000, the golden config cut to
+    SHARD_SCP_ITERS, every ADMM leg capped at SHARD_SCP_CAP. "ds", (d):
+    float32 'admm-ds' as phase 10(b) runs it, and float64 '_hybrid-prox'
+    at M=50 with phase 9(d)'s SCP config, its ADMM legs capped at
+    SHARD_SCP_CAP."""
+    import dataclasses
+
+    from riskaversetrajopt_torch.core.config import SCPConfig
+
+    def golden(iters):
+        return dataclasses.replace(golden_scp_config(), num_iters=iters)
+
+    if group == "ds":
+        prox = SCPConfig(num_iters=HYBRID_PROX_ITERS, gate_iters=1,
+                         gate_row_scale=1e-7, gate_bound_l=-0.1,
+                         gate_bound_u=0.1)
+        return (("admm-ds", torch.float32, M, golden(DS_SCP_ITERS),
+                 dict(admm_cfg=ds_config())),
+                ("_hybrid-prox", torch.float64, SHARD_CKPT_M, prox,
+                 dict(hybrid_cap=SHARD_SCP_CAP)))
+    adm, ir = parity_config()
+    scp = golden(SHARD_SCP_ITERS)
+    return (("ipm", torch.float64, M, scp, {}),
+            ("hybrid", torch.float32, M, scp, dict(admm_cfg=dataclasses.replace(
+                fused_config(), max_iter=SHARD_SCP_CAP))),
+            ("admm-ir", torch.float32, M, scp, dict(
+                admm_cfg=dataclasses.replace(adm, max_iter=SHARD_SCP_CAP),
+                ir_cfg=ir._replace(base_max_iter=SHARD_SCP_CAP))))
+
+
+def phase13_shard_scps(torch, dev, group, runs):
+    """(a), (d) The drone SCP (the first m fixture omegas) through each
+    run of shard_scp_runs on the one-rank NCCL `group` against its
+    unsharded run: bit for bit (controls, iteration counts, flags); the
+    collectives per QP iteration (Mehrotra iterations for 'ipm'; for
+    'hybrid' its ADMM iterations, the IPM legs' collectives counted in;
+    for 'admm-ir' and '_hybrid-prox' every leg's ADMM iterations)."""
+    from riskaversetrajopt_torch.parallel import distributed as pd
+
+    out = {}
+    for backend, dtype, m, scp, kw in runs:
+        om = first_omegas(torch, dtype, dev, m)
+
+        def make(group=None):
+            return drone_opt(torch, dev, m, scp, qp_backend=backend,
+                             dtype=dtype, group=group, **kw)
+
+        ref, t_ref, _ = no_kernel_run(torch, dev,
+                                      lambda: make().solve(om, ALPHA),
+                                      f"unsharded {backend!r} SCP")
+        opt = make(group)
+        with pd.audit() as calls:
+            res, wall, counts = no_kernel_run(
+                torch, dev, lambda: opt.solve(om, ALPHA),
+                f"sharded {backend!r} SCP")
+        bitwise = bitwise_scp(torch, res, ref)
+        diff = float(torch.max(torch.abs(res.us_history - ref.us_history)))
+        st = pd.collective_summary(calls, int(res.qp_iters.sum()))
+        out[backend] = {
+            "dtype": str(dtype).split(".")[-1], "s": wall,
+            "unsharded_s": t_ref, "qp_iters": res.qp_iters.tolist(),
+            "qp_solved": res.qp_solved.tolist(), "bitwise": bitwise,
+            "max_abs_diff": diff, "collectives": st,
+            "kernel_launches": counts}
+        log(f"sharded {out[backend]['dtype']} {backend!r} SCP, one NCCL "
+            f"rank, M={m}, {scp.num_iters} SCP iterations: {wall:.2f} s "
+            f"(unsharded "
+            f"{t_ref:.2f} s), qp_iters {res.qp_iters.tolist()} (unsharded "
+            f"{ref.qp_iters.tolist()}), solved {res.qp_solved.tolist()}, bit "
+            f"for bit the unsharded run {bitwise} (max |diff| {diff:.3e}); "
+            f"collectives {st['calls']} ({st['calls_per_iter']:.2f} and "
+            f"{st['bytes_per_iter']:.0f} B per QP iteration, largest "
+            f"{st['max_elements']} elements)")
+        if not bitwise:
+            raise AssertionError(f"sharded {backend!r} SCP is not the "
+                                 f"unsharded run bit for bit ({diff:.3e})")
+    return out
+
+
+def phase13_checkpoint(torch, dev, group, m=SHARD_CKPT_M):
+    """(c) The float64 'admm' drone SCP at M=m (the first m fixture omegas,
+    the golden config cut to SHARD_SCP_ITERS iterations, phase 12(b1)'s
+    solver config) on the one-rank NCCL `group`, checkpointed one iteration
+    short of the end and resumed: the file bit for bit the unsharded
+    solve's file at that iteration (the unsharded layout), the resumed run
+    bit for bit the uninterrupted sharded run, and an unsharded solve
+    resumed from the sharded file within 1e-10 of the uninterrupted
+    unsharded run."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from riskaversetrajopt_torch.core.config import SolverConfig
+    from riskaversetrajopt_torch.utils import checkpoint as ckpt
+
+    cfg = SolverConfig(eps_abs=1e-6, eps_rel=1e-6, max_iter=SHARD_SCP_CAP,
+                       polish=False, kkt_refine_iters=1)
+    om = first_omegas(torch, torch.float64, dev, m)
+
+    def make(iters, group=None):
+        scp = dataclasses.replace(golden_scp_config(), num_iters=iters)
+        return drone_opt(torch, dev, m, scp, admm_cfg=cfg, group=group)
+
+    n = SHARD_SCP_ITERS
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {k: f"{tmp}/{k}.npz" for k in ("u", "s", "u_from_s")}
+
+        def run():
+            full_u = make(n).solve(om, ALPHA)
+            make(n - 1).solve(om, ALPHA, checkpoint_path=paths["u"])
+            full_s = make(n, group).solve(om, ALPHA)
+            make(n - 1, group).solve(om, ALPHA, checkpoint_path=paths["s"])
+            shutil.copy(paths["s"], paths["u_from_s"])
+            files = [ckpt.load(paths[k]) for k in ("u", "s")]
+            res_s = make(n, group).solve(om, ALPHA, checkpoint_path=paths["s"])
+            res_u = make(n).solve(om, ALPHA, checkpoint_path=paths["u_from_s"])
+            return full_u, full_s, files, res_s, res_u
+
+        (full_u, full_s, files, res_s, res_u), wall, counts = no_kernel_run(
+            torch, dev, run, "sharded checkpoint and resume")
+    same_file = all(np.array_equal(a, b) for a, b in zip(*files))
+    resumed_bitwise = (
+        torch.equal(res_s.us_history, full_s.us_history[-1:])
+        and res_s.qp_iters.tolist() == full_s.qp_iters[-1:].tolist())
+    diff = float(torch.max(torch.abs(res_u.us - full_u.us)))
+    log(f"one-rank sharded f64 'admm' SCP at M={m}, checkpointed at {n - 1} "
+        f"and resumed to {n} ({wall:.2f} s for the five solves, qp_iters "
+        f"{full_s.qp_iters.tolist()}): the file bit for bit the unsharded "
+        f"one {same_file}; resumed run bit for bit the uninterrupted sharded "
+        f"run {resumed_bitwise}; an unsharded solve resumed from the sharded "
+        f"file {diff:.3e} from the uninterrupted unsharded run")
+    if not (same_file and resumed_bitwise and diff <= 1e-10):
+        raise AssertionError("sharded checkpoint/resume checks failed")
+    return {"s": wall, "same_file": same_file,
+            "resumed_bitwise": resumed_bitwise, "unsharded_resume_diff": diff,
+            "kernel_launches": counts}
+
+
+def one_nccl_rank(dev, fn):
+    """fn(group) on a one-rank NCCL group of this process, left after."""
+    import torch.distributed as dist
+
+    from riskaversetrajopt_torch.parallel import distributed as pd
+
+    pd.initialize(f"tcp://localhost:{free_port()}", 1, 0, device=dev)
+    try:
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"backend {dist.get_backend()}, not nccl")
+        return fn(dist.group.WORLD)
+    finally:
+        pd.shutdown()
+
+
+def phase13(torch, dev):
+    """Phase 13 in the "ipm" group, sample-sharded, no kernel: (a) and (c)
+    on a one-rank NCCL group, (b) on two gloo ranks sharing the card."""
+    def one_rank(group):
+        return {"scp_1rank": timed_phase("13a", lambda: phase13_shard_scps(
+                    torch, dev, group, shard_scp_runs(torch, "ipm"))),
+                "checkpoint_1rank": timed_phase("13c", lambda: (
+                    phase13_checkpoint(torch, dev, group)))}
+
+    out = one_nccl_rank(dev, one_rank)
+    out["ipm_qp_2ranks"] = timed_phase("13b", lambda: two_rank_qp(
+        torch, dev, "ipm"))
+    return out
+
+
+def phase13_ds(torch, dev):
+    """Phase 13(d) in the "ds" group: 'admm-ds' and '_hybrid-prox' on a
+    one-rank NCCL group."""
+    return {"scp_1rank": timed_phase("13d", lambda: one_nccl_rank(
+        dev, lambda group: phase13_shard_scps(
+            torch, dev, group, shard_scp_runs(torch, "ds"))))}
 
 
 def phase12_native(torch, dev):
@@ -2177,16 +2462,21 @@ def group_golden(torch, dev):
 
 
 def group_ipm(torch, dev):
-    return timed_phase("9", lambda: phase9(torch, dev, drone64(),
-                                           load_gold(torch, dev)))
+    """Phase 9, then phase 13."""
+    out = timed_phase("9", lambda: phase9(torch, dev, drone64(),
+                                          load_gold(torch, dev)))
+    out["sharded"] = timed_phase("13", lambda: phase13(torch, dev))
+    return out
 
 
 def group_ds(torch, dev):
     _, _, st, data32 = scaled_problem(
         torch, dev, M, lambda opt: load_omegas(torch, torch.float64, dev))
     problem = (None, None, None, None, st, data32)
-    return timed_phase("10", lambda: phase10(torch, dev, problem, drone64(),
-                                             load_gold(torch, dev)))
+    out = timed_phase("10", lambda: phase10(torch, dev, problem, drone64(),
+                                            load_gold(torch, dev)))
+    out["sharded"] = phase13_ds(torch, dev)
+    return out
 
 
 # Phases that reach neither kernel and run for minutes on the host's clock
@@ -2325,6 +2615,16 @@ def main():
     for backend, st in groups["ipm"]["scp_m1000"].items():
         where = f"drone M=1000 {backend!r} solve (phase 9)"
         paths1[where], paths2[where] = st["kernel_launches"]
+    sharded = groups["ipm"]["sharded"]
+    for g in ("ipm", "ds"):
+        for backend, st in groups[g]["sharded"]["scp_1rank"].items():
+            where = f"sharded {backend!r} SCP, one NCCL rank (phase 13)"
+            paths1[where], paths2[where] = st["kernel_launches"]
+    for key, where in (("ipm_qp_2ranks", "sharded IPM QP M=1000, two ranks "
+                                         "(phase 13)"),
+                       ("checkpoint_1rank", "sharded checkpoint and resume "
+                                            "M=50, one NCCL rank (phase 13)")):
+        paths1[where], paths2[where] = sharded[key]["kernel_launches"]
     where = "drone M=1000 'admm-ds' solve (phase 10)"
     paths1[where], paths2[where] = \
         groups["ds"]["ds_scp_m1000"]["kernel_launches"]
@@ -2338,6 +2638,8 @@ def main():
         paths1[where] = paths2[where] = 0
     log("phase 12 summary " + json.dumps(
         {"anderson": groups["golden"]["anderson"], **p12}))
+    log("phase 13 summary " + json.dumps(
+        {**sharded, "scp_1rank_ds": groups["ds"]["sharded"]["scp_1rank"]}))
     b1["launches_by_path"], b2["launches_by_path"] = paths1, paths2
     for k in (b1, b2):
         k["card"] = smi

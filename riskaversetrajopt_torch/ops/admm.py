@@ -47,12 +47,18 @@ class LocalReductions:
     holds every entry: plain torch reductions. An operator whose vectors
     are split over processes carries its own (`ops.reductions`, the same
     methods as collectives). `layout` names what a vector indexes: "x" the
-    variables, "w" the constraint rows, "xww" the concatenation (x, z, y)
-    of Anderson acceleration."""
+    variables, "w" the constraint rows, "w_in" the rows past the first
+    n_fc (the interior-point method's inequality rows), "xww" the
+    concatenation (x, z, y) of Anderson acceleration."""
 
     def amax(self, *ts):
-        """The maximum of each tensor, stacked."""
-        return torch.stack([torch.amax(t) for t in ts])
+        """The maximum of each tensor of non-negative values (0 for an
+        empty one), stacked."""
+        return torch.stack([_amax0(t) for t in ts])
+
+    def amin(self, *ts):
+        """The minimum of each tensor (inf for an empty one), stacked."""
+        return torch.stack([_amin_inf(t) for t in ts])
 
     def sum(self, *pairs):
         """The sum of each (tensor, layout), stacked."""
@@ -61,8 +67,14 @@ class LocalReductions:
     def mean(self, t, layout):
         return torch.mean(t)
 
-    def dot(self, a, b, layout):
-        return torch.dot(a, b)
+    def dots(self, *triples):
+        """torch.dot of each (a, b, layout), stacked."""
+        return torch.stack([torch.dot(a, b) for a, b, _ in triples])
+
+    def cross(self, A, B, layout):
+        """A @ B, contracting the last axis of A (a vector of `layout` per
+        row) with the first of B."""
+        return A @ B
 
     def all(self, b):
         return torch.all(b)
@@ -73,6 +85,20 @@ class LocalReductions:
     def gram(self, F, layout):
         """F F^T over the rows of F (each a vector of `layout`)."""
         return F @ F.T
+
+
+def _amax0(t):
+    """torch.amax(t), 0 for an empty t (jnp.max(..., initial=0.0))."""
+    if t.numel() == 0:
+        return torch.zeros((), dtype=t.dtype, device=t.device)
+    return torch.amax(t)
+
+
+def _amin_inf(t):
+    """torch.amin(t), inf for an empty t."""
+    if t.numel() == 0:
+        return torch.full((), float("inf"), dtype=t.dtype, device=t.device)
+    return torch.amin(t)
 
 
 LOCAL = LocalReductions()
@@ -222,7 +248,7 @@ def certificate_terms(q, l, u, dy, dx, Atdy, Pdx, Adx, red=LOCAL):
     dual_inf = (
         (dx_norm > 1e-10)
         & (Pdx_norm <= tol)
-        & (red.dot(q, dx, "x") <= tol)
+        & (red.dots((q, dx, "x"))[0] <= tol)
         & cone_ok
     )
     return prim_inf, dual_inf

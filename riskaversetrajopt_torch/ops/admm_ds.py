@@ -19,6 +19,9 @@ runs the OSQP-semantics iteration of ops/admm.py with:
 Everything runs in q's dtype (float32 is the intended one). The loops are
 Python loops with one host read per termination check, as in ops/admm.py.
 Like dsjit, this module runs eagerly and must not go under torch.compile.
+Sample-sharded (`shard`), the compensated sweeps add the processes'
+partial sums in double-single (SampleShard.ds_sum) and the residuals'
+maxima are global, so every process takes the same decisions.
 """
 
 from __future__ import annotations
@@ -105,18 +108,23 @@ def solve_saa_qp_ds(
     rho0=None,
     ruiz_iters: int = 5,
     ds_kkt_passes: int = 1,
+    shard=None,
 ) -> admm.QPSolution:
     """OSQP-semantics ADMM with double-single iterates (admm_ds.py:151-385).
-    The infeasibility flags are always False, as in the JAX package."""
+    The infeasibility flags are always False, as in the JAX package. Under
+    `shard`, this process's share of a sample-sharded QP
+    (ops/saa_qp.solve_saa_qp)."""
     ops = SAAQPOps(
         st, data, scp_iter,
         kkt_refine_iters=max(1, cfg.kkt_refine_iters),
         kkt_refine_mode="factored",
         sweep_precision="highest",
         kkt_chol_inverse=cfg.kkt_chol_inverse,
+        shard=shard,
     )
+    red = admm.reductions(ops)
     _, q = build_objective(st, data)
-    l, u = build_bounds(st, data, scp_iter)
+    l, u = build_bounds(st, data, scp_iter, shard)
     dtype, device = q.dtype, q.device
     kw = dict(dtype=dtype, device=device)
     n = q.shape[0]
@@ -141,7 +149,7 @@ def solve_saa_qp_ds(
         torch.as_tensor(cfg.rho if rho0 is None else rho0, **kw),
         _RHO_MIN, _RHO_MAX)
     ruf = float(cfg.rho_update_factor)
-    q_norm_unscaled = torch.amax(torch.abs(q))
+    q_norm_unscaled = red.amax(torch.abs(q))[0]
 
     # scaled warm start: x = x0 / D, y = y0 * c / E (ds divisions, products)
     if x0 is None:
@@ -201,9 +209,6 @@ def solve_saa_qp_ds(
         yn_h, yn_l = ds.ds_add(yh, yl, dh, dl)
         return xn_h, xn_l, zn_h, zn_l, yn_h, yn_l
 
-    def amax(v):
-        return torch.amax(torch.abs(v))
-
     def residuals(xh, xl, zh, zl, yh, yl):
         """Unscaled OSQP residuals, their thresholds and the scaled rho
         ratio, all evaluated in ds (ops/admm.py's residuals)."""
@@ -214,23 +219,24 @@ def solve_saa_qp_ds(
         zu = ds.ds_div(zh, zl, E)
         Px = ds.ds_div(*ds.ds_div(*Pxs, D), c)
         Aty = ds.ds_div(*ds.ds_div(*Atys, D), c)
-        prim = amax(ds.ds_round(*ds.ds_add(*Ax, -zu[0], -zu[1])))
         dh, dl = ds.ds_add(*Px, *Aty)
         dh, dl = ds.ds_add(dh, dl, q, torch.zeros_like(q))
-        dual = amax(ds.ds_round(dh, dl))
-        eps_prim = cfg.eps_abs + cfg.eps_rel * torch.maximum(
-            amax(ds.ds_round(*Ax)), amax(ds.ds_round(*zu)))
-        eps_dual = cfg.eps_abs + cfg.eps_rel * torch.maximum(
-            torch.maximum(amax(ds.ds_round(*Px)), amax(ds.ds_round(*Aty))),
-            q_norm_unscaled)
-        # adaptive-rho ratio on the scaled residuals (OSQP sec 5.2)
-        prim_s = amax(ds.ds_round(*ds.ds_add(Axs[0], Axs[1], -zh, -zl)))
         sd_h, sd_l = ds.ds_add(Pxs[0], Pxs[1], qs_h, qs_l)
         sd_h, sd_l = ds.ds_add(sd_h, sd_l, Atys[0], Atys[1])
-        dual_s = amax(ds.ds_round(sd_h, sd_l))
-        denom_p = torch.maximum(amax(Axs[0]), amax(zh)) + 1e-30
-        denom_d = torch.maximum(torch.maximum(amax(Pxs[0]), amax(Atys[0])),
-                                amax(qs_h)) + 1e-30
+        # every maximum in one global reduction; the adaptive-rho ratio on
+        # the scaled residuals (OSQP sec 5.2)
+        (prim, dual, n_Ax, n_zu, n_Px, n_Aty, prim_s, dual_s, n_Axs, n_zh,
+         n_Pxs, n_Atys, n_qs) = red.amax(*(torch.abs(v) for v in (
+             ds.ds_round(*ds.ds_add(*Ax, -zu[0], -zu[1])), ds.ds_round(dh, dl),
+             ds.ds_round(*Ax), ds.ds_round(*zu), ds.ds_round(*Px),
+             ds.ds_round(*Aty),
+             ds.ds_round(*ds.ds_add(Axs[0], Axs[1], -zh, -zl)),
+             ds.ds_round(sd_h, sd_l), Axs[0], zh, Pxs[0], Atys[0], qs_h)))
+        eps_prim = cfg.eps_abs + cfg.eps_rel * torch.maximum(n_Ax, n_zu)
+        eps_dual = cfg.eps_abs + cfg.eps_rel * torch.maximum(
+            torch.maximum(n_Px, n_Aty), q_norm_unscaled)
+        denom_p = torch.maximum(n_Axs, n_zh) + 1e-30
+        denom_d = torch.maximum(torch.maximum(n_Pxs, n_Atys), n_qs) + 1e-30
         ratio = (prim_s / denom_p) / (dual_s / denom_d + 1e-30)
         return prim, dual, eps_prim, eps_dual, ratio
 

@@ -19,6 +19,12 @@ sigma = (mu_aff / mu)^3.
 The iteration is a Python loop; the iterates stay on the device and the
 host reads one flag per iteration (whether to stop), where the JAX
 while-loop evaluates its condition.
+
+Every reduction over the variables or the rows (the norms, mu, the
+step-length minima, the equality Schur block) is taken from the operator's
+`reductions` (ops/admm.py), so the solver runs on a sample-sharded
+operator as on a whole one: every quantity the stopping rule reads comes
+out of a global reduction, so every process takes the same decisions.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ from riskaversetrajopt_torch.ops.admm import (
     QPSolution,
     ScaledOps,
     _polish,
+    reductions,
     ruiz_equilibrate,
 )
 
@@ -47,13 +54,6 @@ class IPMConfig(NamedTuple):
     # the active set is often not unique and the candidate is rejected)
     polish: bool = False
     polish_refine_iters: int = 3
-
-
-def _amax(v):
-    """max |v|, 0 for an empty v (jnp.max(..., initial=0.0))."""
-    if v.numel() == 0:
-        return torch.zeros((), dtype=v.dtype, device=v.device)
-    return torch.amax(torch.abs(v))
 
 
 def solve_qp_ipm(ops, q, l, u, n_eq: int, cfg: IPMConfig = IPMConfig(),
@@ -77,12 +77,11 @@ def solve_qp_ipm(ops, q, l, u, n_eq: int, cfg: IPMConfig = IPMConfig(),
     z = torch.clamp(Ax, l, u)
     Px = ops.matvec_P(x)
     Aty = ops.rmatvec_A(y)
-    prim = _amax(Ax - z)
-    dual = _amax(Px + q + Aty)
+    prim, dual, n_Ax, n_Px, n_Aty, n_q = reductions(ops).amax(*(
+        torch.abs(v) for v in (Ax - z, Px + q + Aty, Ax, Px, Aty, q)))
     one = torch.ones((), dtype=q.dtype, device=q.device)
-    p_sc = torch.maximum(_amax(Ax), one)
-    d_sc = torch.maximum(torch.maximum(_amax(Px), _amax(Aty)),
-                         torch.maximum(_amax(q), one))
+    p_sc = torch.maximum(n_Ax, one)
+    d_sc = torch.maximum(torch.maximum(n_Px, n_Aty), torch.maximum(n_q, one))
     solved = (prim <= cfg.tol * p_sc) & (dual <= cfg.tol * d_sc)
     return QPSolution(x=x, y=y, z=z, iters=sol.iters, prim_res=prim,
                       dual_res=dual, solved=bool(solved))
@@ -113,7 +112,10 @@ def _solve_qp_ipm_raw(ops, q, l, u, n_eq: int,
                       cfg: IPMConfig = IPMConfig()) -> QPSolution:
     """Mehrotra predictor-corrector on the problem as given
     (ipm.py:116-395). Returns the best iterate seen: the QPs here can be
-    dual-degenerate and late barrier iterations may diverge."""
+    dual-degenerate and late barrier iterations may diverge. The vectors
+    of the inequality rows (s_l, s_u, lam_l, lam_u) have the layout "w_in"
+    of `reductions` (a sample-sharded operator's n_eq is its n_fc)."""
+    red = reductions(ops)
     dtype, device = q.dtype, q.device
     kw = dict(dtype=dtype, device=device)
     n = q.shape[0]
@@ -129,7 +131,10 @@ def _solve_qp_ipm_raw(ops, q, l, u, n_eq: int,
     u_in = u[n_eq:]
     has_l = torch.isfinite(l_in)
     has_u = torch.isfinite(u_in)
-    n_sides = torch.clamp(torch.sum(has_l) + torch.sum(has_u), min=1).to(dtype)
+    # a sum of 0/1 values: exact in any order
+    sides_l, sides_u = red.sum((has_l.to(dtype), "w_in"),
+                               (has_u.to(dtype), "w_in"))
+    n_sides = torch.clamp(sides_l + sides_u, min=1)
     sigma_vec = torch.full((n,), cfg.sigma_reg, **kw)
 
     # A_eq^T columns through rmatvec of the one-hot equality rows
@@ -141,11 +146,12 @@ def _solve_qp_ipm_raw(ops, q, l, u, n_eq: int,
     def rmatvec_with(w_eq, w_in):
         return ops.rmatvec_A(torch.cat([w_eq, w_in]))
 
-    q_norm = torch.amax(torch.abs(q)) + 1.0
+    n_q, n_l, n_u = red.amax(
+        torch.abs(q), torch.abs(torch.where(torch.isfinite(l), l, zero)),
+        torch.abs(torch.where(torch.isfinite(u), u, zero)))
+    q_norm = n_q + 1.0
     # bound scale for relative primal termination
-    b_norm = torch.maximum(
-        _amax(torch.where(torch.isfinite(l), l, zero)),
-        _amax(torch.where(torch.isfinite(u), u, zero))) + 1.0
+    b_norm = torch.maximum(n_l, n_u) + 1.0
     # barrier-weight safeguard: float32 KKT factorizations lose the
     # small-pivot information once weights pass ~1e6
     w_max = 1e13 if dtype == torch.float64 else 3e6
@@ -159,23 +165,31 @@ def _solve_qp_ipm_raw(ops, q, l, u, n_eq: int,
         Px = ops.matvec_P(s.x)
         Aty = rmatvec_with(s.y_eq, s.lam_u - s.lam_l)
         r_d = Px + q + Aty
-        mu = (torch.dot(s.s_l, s.lam_l) + torch.dot(s.s_u, s.lam_u)) / n_sides
-        prim = torch.maximum(_amax(r_eq),
-                             torch.maximum(_amax(r_l), _amax(r_u)))
-        dual = _amax(r_d)
+        d_l, d_u = red.dots((s.s_l, s.lam_l, "w_in"), (s.s_u, s.lam_u, "w_in"))
+        mu = (d_l + d_u) / n_sides
+        n_req, n_l, n_u, dual, n_Px, n_Aty, n_Ax = red.amax(*(
+            torch.abs(v) for v in (r_eq, r_l, r_u, r_d, Px, Aty, Ax)))
+        prim = torch.maximum(n_req, torch.maximum(n_l, n_u))
         # OSQP-style relative scales: the duals of degenerate CVaR rows are
         # legitimately large
-        d_scale = torch.maximum(torch.maximum(_amax(Px), _amax(Aty)), q_norm)
-        p_scale = torch.maximum(_amax(Ax), b_norm)
+        d_scale = torch.maximum(torch.maximum(n_Px, n_Aty), q_norm)
+        p_scale = torch.maximum(n_Ax, b_norm)
         return _Res(r_eq, r_l, r_u, r_d, mu, prim, dual, p_scale, d_scale)
 
-    def max_step(v, dv, mask):
-        """Largest a in (0, 1] with v + a dv >= (1 - tau) v on mask."""
-        neg = dv < 0
-        ratio = torch.where(mask & neg,
-                            -v / torch.where(neg, dv, -one), inf)
-        rmin = torch.amin(ratio) if ratio.numel() > 0 else inf
-        return torch.minimum(one, cfg.tau * rmin)
+    def primal_dual_steps(ds_l, ds_u, dlam_l, dlam_u):
+        """The primal and the dual step length: the largest a in (0, 1]
+        with v + a dv >= (1 - tau) v on each side's mask (the four ratio
+        minima in one global reduction)."""
+        ratios = []
+        for v, dv, mask in ((s.s_l, ds_l, has_l), (s.s_u, ds_u, has_u),
+                            (s.lam_l, dlam_l, has_l),
+                            (s.lam_u, dlam_u, has_u)):
+            neg = dv < 0
+            ratios.append(torch.where(mask & neg,
+                                      -v / torch.where(neg, dv, -one), inf))
+        sl, su, ll, lu = (torch.minimum(one, cfg.tau * r)
+                          for r in red.amin(*ratios))
+        return torch.minimum(sl, su), torch.minimum(ll, lu)
 
     x0 = torch.zeros(n, **kw)
     Ax0 = ops.matvec_A(x0)[n_eq:]
@@ -203,7 +217,8 @@ def _solve_qp_ipm_raw(ops, q, l, u, n_eq: int,
         NiAeqT = (torch.stack([ops.kkt_solve(factor, col, rho_vec, sigma_vec,
                                              1.0) for col in A_eq_T])
                   if n_eq > 0 else torch.zeros(0, n, **kw))  # (n_eq, n)
-        S_eq = A_eq_T @ NiAeqT.T + cfg.sigma_reg * torch.eye(n_eq, **kw)
+        S_eq = (red.cross(A_eq_T, NiAeqT.T, "x")
+                + cfg.sigma_reg * torch.eye(n_eq, **kw))
 
         def solve_step(r_cl, r_cu):
             """The reduced Newton system for the complementarity residuals
@@ -215,8 +230,8 @@ def _solve_qp_ipm_raw(ops, q, l, u, n_eq: int,
             if n_eq > 0:
                 # a singular S_eq gives a NaN step, which is rejected below
                 # (jnp.linalg.solve returns one; torch.linalg.solve raises)
-                dy_eq, info = torch.linalg.solve_ex(S_eq,
-                                                    A_eq_T @ NiR + res.r_eq)
+                dy_eq, info = torch.linalg.solve_ex(
+                    S_eq, red.cross(A_eq_T, NiR, "x") + res.r_eq)
                 dy_eq = torch.where(info == 0, dy_eq, nan)
                 dx = NiR - NiAeqT.T @ dy_eq
             else:
@@ -232,23 +247,18 @@ def _solve_qp_ipm_raw(ops, q, l, u, n_eq: int,
         r_cl_aff = s.s_l * s.lam_l
         r_cu_aff = s.s_u * s.lam_u
         dxa, dya, dsla, dsua, dlla, dlua = solve_step(r_cl_aff, r_cu_aff)
-        a_p = torch.minimum(max_step(s.s_l, dsla, has_l),
-                            max_step(s.s_u, dsua, has_u))
-        a_d = torch.minimum(max_step(s.lam_l, dlla, has_l),
-                            max_step(s.lam_u, dlua, has_u))
-        mu_aff = (torch.dot(s.s_l + a_p * dsla, s.lam_l + a_d * dlla)
-                  + torch.dot(s.s_u + a_p * dsua, s.lam_u + a_d * dlua)
-                  ) / n_sides
+        a_p, a_d = primal_dual_steps(dsla, dsua, dlla, dlua)
+        aff_l, aff_u = red.dots(
+            (s.s_l + a_p * dsla, s.lam_l + a_d * dlla, "w_in"),
+            (s.s_u + a_p * dsua, s.lam_u + a_d * dlua, "w_in"))
+        mu_aff = (aff_l + aff_u) / n_sides
         sig = torch.clamp((mu_aff / (res.mu + 1e-30)) ** 3, 0.0, 1.0)
 
         # --- corrector ---
         r_cl = torch.where(has_l, r_cl_aff + dsla * dlla - sig * res.mu, zero)
         r_cu = torch.where(has_u, r_cu_aff + dsua * dlua - sig * res.mu, zero)
         dx, dy_eq, ds_l, ds_u, dlam_l, dlam_u = solve_step(r_cl, r_cu)
-        a_p = torch.minimum(max_step(s.s_l, ds_l, has_l),
-                            max_step(s.s_u, ds_u, has_u))
-        a_d = torch.minimum(max_step(s.lam_l, dlam_l, has_l),
-                            max_step(s.lam_u, dlam_u, has_u))
+        a_p, a_d = primal_dual_steps(ds_l, ds_u, dlam_l, dlam_u)
 
         new = _State(
             x=s.x + a_p * dx,

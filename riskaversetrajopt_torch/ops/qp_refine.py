@@ -18,6 +18,11 @@ refinement (Gleixner et al.):
    each round skipped once the compensated unscaled residuals certify.
 
 Like dsjit, this module runs eagerly and must not go under torch.compile.
+
+On a sample-sharded operator (SAAQPOps(shard=...)) the compensated sums over
+the sample axis stay compensated across processes (SampleShard.ds_sum) and
+the residuals' maxima are global (the operator's `reductions`), so every
+process certifies, and refines, in step.
 """
 
 from __future__ import annotations
@@ -75,9 +80,10 @@ def _scalar(v, like):
 
 def _ds_matvec_A(ops: SAAQPOps, x_h, x_l):
     """Compensated matvec_A of a ds vector; mirrors SAAQPOps.matvec_A
-    (row order [final | cvar | y | sample | slack | control])."""
+    (row order [final | cvar | y | sample | slack | control]; under a
+    shard, this process's y and sample rows)."""
     st, sc = ops.st, ops.scales
-    n, M = st.n, st.M
+    n, M = st.n, ops.Ml
     u_h, y_h = x_h[:n], x_h[n:n + M]
     u_l, y_l = x_l[:n], x_l[n:n + M]
     s_h, s_l = x_h[n + M], x_l[n + M]
@@ -88,9 +94,9 @@ def _ds_matvec_A(ops: SAAQPOps, x_h, x_l):
     pe = pe + ops.data.F * u_l[None, :]
     rf_h, rf_l = ds.ds_sum(ph, pe, axis=1)
 
-    # CVaR row: c * (sum(y) + s + M*alpha*t)
-    sy_h, sy_l = ds.ds_sum(y_h, y_l, axis=0)
-    ma_h, ma_l = ds.two_prod(_scalar(float(M), x_h), ops.data.alpha)
+    # CVaR row: c * (sum(y) + s + M*alpha*t), M the global sample count
+    ((sy_h, sy_l),) = ops._sum_ds(ds.ds_sum(y_h, y_l, axis=0))
+    ma_h, ma_l = ds.two_prod(_scalar(float(st.M), x_h), ops.data.alpha)
     mat_h, mat_l = ds.ds_mul(ma_h, ma_l, t_h, t_l)
     rc_h, rc_l = ds.ds_add(sy_h, sy_l, s_h, s_l)
     rc_h, rc_l = ds.ds_add(rc_h, rc_l, mat_h, mat_l)
@@ -121,7 +127,7 @@ def _ds_rmatvec_A(ops: SAAQPOps, w, w_lo=None):
     """Compensated rmatvec_A of a dual vector w; `w_lo` makes (w, w_lo) a
     double-single input, else w is exact as given."""
     st, sc = ops.st, ops.scales
-    M = st.M
+    M = ops.Ml
     w_f, w_c, w_y, w_G, w_s, w_u = ops._split_w(w)
     if w_lo is None:
         w_lo = torch.zeros_like(w)
@@ -135,27 +141,28 @@ def _ds_rmatvec_A(ops: SAAQPOps, w, w_lo=None):
     ph, pe = ds.two_prod(ops.data.F, w_f[:, None])
     pe = pe + ops.data.F * wl_f[:, None]
     ftw_h, ftw_l = ds.ds_sum(ph, pe, axis=0)
-    gtw_h, gtw_l = ds.contract_mkn_mk(ops.data.G, wg_h, wg_l,
-                                      chunk=_ds_chunk(M))
-    u_h, u_l = ds.ds_add(ftw_h, ftw_l, gtw_h, gtw_l)
-    u_h, u_l = ds.ds_add(u_h, u_l, w_u, wl_u)
-
     rows_h, rows_l = ds.ds_sum(wg_h, wg_l, axis=1)  # (M,)
-
     cw_h, cw_l = ds.ds_scale(w_c, wl_c, sc.c)
     yw_h, yw_l = ds.ds_scale(w_y, wl_y, sc.y)
     gy_rows_h, gy_rows_l = ds.ds_scale(rows_h, rows_l, sc.gy)
+
+    # the three sums over the sample axis (over every process's samples)
+    (gtw_h, gtw_l), (syw_h, syw_l), (srows_h, srows_l) = ops._sum_ds(
+        ds.contract_mkn_mk(ops.data.G, wg_h, wg_l, chunk=_ds_chunk(M)),
+        ds.ds_sum(yw_h, yw_l, axis=0),
+        ds.ds_sum(gy_rows_h, gy_rows_l, axis=0))
+    u_h, u_l = ds.ds_add(ftw_h, ftw_l, gtw_h, gtw_l)
+    u_h, u_l = ds.ds_add(u_h, u_l, w_u, wl_u)
+
     y_h, y_l = ds.ds_add(cw_h.expand(M), cw_l.expand(M), -yw_h, -yw_l)
     y_h, y_l = ds.ds_add(y_h, y_l, -gy_rows_h, -gy_rows_l)
 
-    syw_h, syw_l = ds.ds_sum(yw_h, yw_l, axis=0)
     sw_h, sw_l = ds.ds_scale(w_s, wl_s, sc.s)
     s_h, s_l = ds.ds_add(cw_h, cw_l, -syw_h, -syw_l)
     s_h, s_l = ds.ds_add(s_h, s_l, -sw_h, -sw_l)
 
-    ma_h, ma_l = ds.two_prod(_scalar(float(M), w), ops.data.alpha)
+    ma_h, ma_l = ds.two_prod(_scalar(float(st.M), w), ops.data.alpha)
     cma_h, cma_l = ds.ds_mul(ma_h, ma_l, cw_h, cw_l)
-    srows_h, srows_l = ds.ds_sum(gy_rows_h, gy_rows_l, axis=0)
     t_h, t_l = ds.ds_add(cma_h, cma_l, -srows_h, -srows_l)
 
     h = torch.cat([u_h, y_h, s_h[None], t_h[None]])
@@ -187,25 +194,25 @@ class _Residuals(NamedTuple):
         return bool((self.prim <= self.eps_prim) & (self.dual <= self.eps_dual))
 
 
-def _finish(l, u, ax_h, ax_l, px_h, px_l, aty_h, aty_l, rd_h, rd_l, q, cfg):
+def _finish(l, u, ax_h, ax_l, px_h, px_l, aty_h, aty_l, rd_h, rd_l, q, cfg,
+            red=admm.LOCAL):
     """The unscaled OSQP residuals and thresholds from the compensated
-    Ax, Px, A^T y and r_d (z = clip(Ax))."""
+    Ax, Px, A^T y and r_d (z = clip(Ax)); the maxima from `red`."""
     rl_h, rl_l = _ds_sub_bound(l, ax_h, ax_l)  # l - Ax
     ru_h, ru_l = _ds_sub_bound(u, ax_h, ax_l)  # u - Ax
     ninf = torch.full_like(l, float("-inf"))
     viol = torch.maximum(
         torch.where(torch.isfinite(l), ds.ds_round(rl_h, rl_l), ninf),
         torch.where(torch.isfinite(u), ds.ds_round(-ru_h, -ru_l), ninf))
-    prim = torch.amax(torch.clamp(viol, min=0.0))
-    dual = torch.amax(torch.abs(ds.ds_round(rd_h, rd_l)))
     ax = ds.ds_round(ax_h, ax_l)
     z = torch.clamp(ax, l, u)
-    amax = lambda v: torch.amax(torch.abs(v))  # noqa: E731
-    eps_prim = cfg.eps_abs + cfg.eps_rel * torch.maximum(amax(ax), amax(z))
+    prim, dual, n_ax, n_z, n_px, n_aty, n_q = red.amax(
+        torch.clamp(viol, min=0.0), *(torch.abs(v) for v in (
+            ds.ds_round(rd_h, rd_l), ax, z, ds.ds_round(px_h, px_l),
+            ds.ds_round(aty_h, aty_l), q)))
+    eps_prim = cfg.eps_abs + cfg.eps_rel * torch.maximum(n_ax, n_z)
     eps_dual = cfg.eps_abs + cfg.eps_rel * torch.maximum(
-        torch.maximum(amax(ds.ds_round(px_h, px_l)),
-                      amax(ds.ds_round(aty_h, aty_l))),
-        amax(q))
+        torch.maximum(n_px, n_aty), n_q)
     return _Residuals(prim, dual, eps_prim, eps_dual,
                       rd_h, rd_l, rl_h, rl_l, ru_h, ru_l)
 
@@ -219,7 +226,7 @@ def _residuals(ops, q, l, u, p_diag, x_h, x_l, y, cfg):
     aty_h, aty_l = _ds_rmatvec_A(ops, y)
     rd_h, rd_l = ds.ds_add(rd_h, rd_l, aty_h, aty_l)
     return _finish(l, u, ax_h, ax_l, px_h, px_e, aty_h, aty_l, rd_h, rd_l,
-                   q, cfg)
+                   q, cfg, admm.reductions(ops))
 
 
 def _pow2(x):
@@ -332,11 +339,16 @@ class _ProxOps:
     """Adds `sig * I` to the operator's quadratic term (P + sig I) through
     the sigma_vec argument, which every factorize/kkt_solve applies to all
     variable blocks. Under admm.ScaledOps the inner call receives
-    sigma_vec + cost_scale*sig, so the prox acts in the unscaled space."""
+    sigma_vec + cost_scale*sig, so the prox acts in the unscaled space. It
+    carries the inner operator's reductions and shard: without them a
+    sample-sharded solve would take each process's partial residuals for
+    global ones."""
 
     def __init__(self, inner, sig):
         self.inner = inner
         self.sig = sig
+        self.reductions = admm.reductions(inner)
+        self.shard = getattr(inner, "shard", None)
 
     def matvec_P(self, x):
         return self.inner.matvec_P(x) + self.sig * x
@@ -368,14 +380,15 @@ class _ProxOps:
 
 def solve_saa_qp_ir(st: SAAQPStatic, data, scp_iter: int, cfg: SolverConfig,
                     ir: IRConfig = IRConfig(), x0=None, y0=None,
-                    ruiz_iters: int = 5) -> admm.QPSolution:
+                    ruiz_iters: int = 5, shard=None) -> admm.QPSolution:
     """Structured ADMM + iterative refinement to cfg.eps_abs/eps_rel
     (qp_refine.py:432-577). With cfg.polish the certified point is snapped
     to its active-set vertex, kept only if its compensated residuals still
-    certify."""
-    ops = make_ops(st, data, scp_iter, cfg)
+    certify. Under `shard`, this process's share of a sample-sharded QP
+    (ops/saa_qp.solve_saa_qp)."""
+    ops = make_ops(st, data, scp_iter, cfg, shard)
     p_diag, q = build_objective(st, data)
-    l, u = build_bounds(st, data, scp_iter)
+    l, u = build_bounds(st, data, scp_iter, shard)
     scaling = admm.ruiz_equilibrate(ops, q, l, u, iters=ruiz_iters)
     work_cfg, base_cfg = _leg_configs(cfg, ir)
     base = admm.admm_solve(ops, q, l, u, base_cfg, x0=x0, y0=y0,

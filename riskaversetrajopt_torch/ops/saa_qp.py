@@ -283,6 +283,11 @@ class SAAQPOps:
     def _max(self, *ts):
         return ts if self.shard is None else self.shard.max(*ts)
 
+    def _sum_ds(self, *pairs):
+        """Double-single (hi, lo) sums over this process's samples -> the
+        compensated sums over all M (SampleShard.ds_sum)."""
+        return pairs if self.shard is None else self.shard.ds_sum(*pairs)
+
     # -- pieces ------------------------------------------------------------
     def _split_z(self, z):
         n, M = self.st.n, self.Ml
@@ -608,6 +613,29 @@ def make_ops(st: SAAQPStatic, data: SAAQPData, scp_iter: int,
         sweep_precision=cfg.sweep_precision,
         kkt_chol_inverse=cfg.kkt_chol_inverse, shard=shard,
     )
+
+
+def gather_warm(st: SAAQPStatic, shard, x, w):
+    """The global x = [u | y (M) | s | t] and w = [final | CVaR | y rows (M)
+    | sample rows (M*K) | slack | u] from this process's share of a
+    sample-sharded QP's vectors (every process's samples at its offset; two
+    all-reduces, none larger than M*K)."""
+    n, K, o, Ml = st.n, st.K, st.n_fc + 1, shard.M_local
+    g = o + Ml + Ml * K  # the end of this process's sample rows
+    y = shard.gather(torch.stack([x[n:n + Ml], w[o:o + Ml]], dim=1))
+    rows = shard.gather(w[o + Ml:g].reshape(Ml, K))
+    return (torch.cat([x[:n], y[:, 0], x[n + Ml:]]),
+            torch.cat([w[:o], y[:, 1], rows.reshape(-1), w[g:]]))
+
+
+def local_warm(st: SAAQPStatic, shard, x, w):
+    """This process's share of global vectors x and w (gather_warm's
+    inverse)."""
+    n, K, o, M = st.n, st.K, st.n_fc + 1, st.M
+    a, b = shard.offset, shard.offset + shard.M_local
+    return (torch.cat([x[:n], x[n + a:n + b], x[n + M:]]),
+            torch.cat([w[:o], w[o + a:o + b],
+                       w[o + M + a * K:o + M + b * K], w[o + M + M * K:]]))
 
 
 def solve_saa_qp(

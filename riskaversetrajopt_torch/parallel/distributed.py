@@ -19,11 +19,18 @@ several processes share one card, which NCCL refuses). Run
 
     python -m riskaversetrajopt_torch.parallel.distributed --selftest \\
         --init-method tcp://localhost:PORT --world-size 2 --rank R \\
-        [--device cpu] [--mode qp|batch|scp] [--omegas FILE.npz]
+        [--device cpu] [--mode qp|batch|scp] [--omegas FILE.npz] \\
+        [--backends ipm,hybrid,...] [--scp-iters N] [--model drone|car] \\
+        [--checkpoint DIR]
 
-as one worker of such a group (tests/test_torch_distributed.py spawns two).
-`--omegas` gives the scp mode its samples (an .npz of the DroneOmega
-fields, M=16) in place of the port's own sampler.
+as one worker of such a group (tests/test_torch_distributed.py and
+tests/test_torch_sharded_backends.py spawn two). `--omegas` gives the scp
+mode its samples (an .npz of the DroneOmega fields, M=16) in place of the
+port's own sampler. `--backends` makes the scp mode solve with each of the
+listed backends in turn (`--scp-iters` SCP iterations, default 3; the car
+of `selftest_car_opt` with `--model car`), and `--checkpoint` adds solves
+of CHECKPOINT_BACKEND checkpointed one iteration short of the end, in DIR,
+and resumed to it: sharded from a sharded file and from an unsharded one.
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ import torch
 import torch.distributed as dist
 
 from riskaversetrajopt_torch.models.base import resolve_device
+from riskaversetrajopt_torch.ops.admm import _amax0, _amin_inf
 
 _state = {"initialized": False, "device": None}
 # collectives recorded by `audit`: (op, elements, bytes) per call
@@ -123,11 +131,12 @@ def audit():
         _audit_log = prev
 
 
-_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
+_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
+        "min": dist.ReduceOp.MIN}
 
 
 def _all_reduce(t, op: str, group):
-    """All-reduce `t` in place over `group` (op "sum" or "max")."""
+    """All-reduce `t` in place over `group` (op "sum", "max" or "min")."""
     if _audit_log is not None:
         _audit_log.append((op, t.numel(), t.numel() * t.element_size()))
     dist.all_reduce(t, op=_OPS[op], group=group)
@@ -165,6 +174,42 @@ class SampleShard:
     def max(self, *ts):
         return self._reduce(ts, "max")
 
+    def min(self, *ts):
+        return self._reduce(ts, "min")
+
+    def ds_sum(self, *pairs):
+        """Each double-single (hi, lo) pair (ops/dsjit.py) summed over the
+        processes, compensated: every process writes its pairs into its own
+        row of a zero-padded (P, ...) buffer, whose all-reduce is exact (one
+        non-zero contributor per entry), and every process adds the P rows
+        in rank order with ds_add. All-reducing hi and lo apart would lose
+        the compensation. With one process the pairs come back as given."""
+        from riskaversetrajopt_torch.ops.dsjit import ds_add
+
+        flat = torch.cat([t.reshape(-1) for pair in pairs for t in pair])
+        buf = torch.zeros((self.size, flat.numel()), dtype=flat.dtype,
+                          device=flat.device)
+        buf[self.rank] = flat
+        buf = _all_reduce(buf, "sum", self.group)
+        h, lo = _split_pairs(buf[0], pairs)
+        for r in range(1, self.size):
+            hr, lr = _split_pairs(buf[r], pairs)
+            h, lo = ds_add(h, lo, hr, lr)
+        out, o = [], 0
+        for ph, _ in pairs:
+            k = ph.numel()
+            out.append((h[o:o + k].reshape(ph.shape),
+                        lo[o:o + k].reshape(ph.shape)))
+            o += k
+        return tuple(out)
+
+    def barrier(self, device) -> None:
+        """Return once every process has called this: an all-reduce (of a
+        tensor on `device`) whose value is read back on the host. The read
+        is the wait: with NCCL an all-reduce only queues on the stream."""
+        (t,) = self.sum(torch.ones(1, device=device))
+        float(t[0])
+
     def gather(self, local):
         """The (M, ...) value on every process from each one's
         (M_local, ...) slice: an all-reduce of a zero-padded buffer."""
@@ -179,13 +224,26 @@ class SampleShard:
         return ShardedReductions(self, n, n_fc, K)
 
 
+def _split_pairs(flat, pairs):
+    """The hi parts and the lo parts of `pairs` as packed (hi, lo, hi, lo,
+    ...) in `flat`, each concatenated."""
+    his, los, o = [], [], 0
+    for h, _ in pairs:
+        k = h.numel()
+        his.append(flat[o:o + k])
+        los.append(flat[o + k:o + 2 * k])
+        o += 2 * k
+    return torch.cat(his), torch.cat(los)
+
+
 class ShardedReductions:
     """ops/admm.LocalReductions' methods over sample-sharded vectors.
     Variables x = [u (n) | y (M_local) | s | t]; rows w = [final (n_fc) |
-    CVaR | y rows (M_local) | sample rows (M_local*K) | slack | u (n)]. The
-    replicated entries (u, s, t, the final, CVaR, slack and control rows)
-    enter the sums on process 0 only, so each counts once; the maxima need
-    no such care. Each call is one all-reduce."""
+    CVaR | y rows (M_local) | sample rows (M_local*K) | slack | u (n)];
+    "w_in" is w past its n_fc final rows. The replicated entries (u, s, t,
+    the final, CVaR, slack and control rows) enter the sums on process 0
+    only, so each counts once; the maxima and minima need no such care.
+    Each call is one all-reduce."""
 
     def __init__(self, shard: SampleShard, n: int, n_fc: int, K: int):
         self.shard = shard
@@ -198,7 +256,7 @@ class ShardedReductions:
         keep_x = mask([(n, False), (Ml, True), (2, False)])
         keep_w = mask([(n_fc + 1, False), (Ml + Ml * K, True),
                        (1 + n, False)])
-        self._keep = {"x": keep_x, "w": keep_w,
+        self._keep = {"x": keep_x, "w": keep_w, "w_in": keep_w[n_fc:],
                       "xww": torch.cat([keep_x, keep_w, keep_w])}
         M = shard.M
         self._count = {"x": n + M + 2, "w": n_fc + 2 + M + M * K + n}
@@ -215,7 +273,10 @@ class ShardedReductions:
                            torch.zeros((), dtype=t.dtype, device=t.device))
 
     def amax(self, *ts):
-        return self.shard.max(torch.stack([torch.amax(t) for t in ts]))[0]
+        return self.shard.max(torch.stack([_amax0(t) for t in ts]))[0]
+
+    def amin(self, *ts):
+        return self.shard.min(torch.stack([_amin_inf(t) for t in ts]))[0]
 
     def sum(self, *pairs):
         return self.shard.sum(torch.stack(
@@ -227,8 +288,14 @@ class ShardedReductions:
         w = t.numel() / self._count[layout]
         return self.shard.sum(torch.mean(self._kept(t, layout)) * w)[0]
 
-    def dot(self, a, b, layout):
-        return self.shard.sum(torch.dot(self._kept(a, layout), b))[0]
+    def dots(self, *triples):
+        return self.shard.sum(torch.stack(
+            [torch.dot(self._kept(a, layout), b) for a, b, layout in triples]
+        ))[0]
+
+    def cross(self, A, B, layout):
+        return self.shard.sum(
+            torch.where(self.keep(layout, A.device), A, 0.0) @ B)[0]
 
     def all(self, b):
         return self.shard.max((~torch.all(b)).to(torch.int32))[0] == 0
@@ -304,18 +371,61 @@ def selftest_batch_instances(B: int, M: int = SELFTEST_M):
                 for b in range(B)]
 
 
-def selftest_scp_opt(device, num_iters: int = 6, group=None):
-    """The drone SCP of the scp mode (the JAX selftest's full-SCP config)."""
+# '_hybrid-prox' as tests/test_scp_drone.py:238-261 runs it: gate_iters 1,
+# the ADMM legs capped at 1000 iterations; on the selftest omegas its second
+# QP goes through the proximal IPM rescue
+HYBRID_PROX_SELFTEST = dict(gate_iters=1, hybrid_cap=1000)
+# the backend of the worker's checkpointed solves: warm-started from the
+# saved x and y
+CHECKPOINT_BACKEND = "admm-ir"
+
+
+def selftest_scp_opt(device, num_iters: int = 6, group=None,
+                     backend: str = "admm"):
+    """The drone SCP of the scp mode (the JAX selftest's full-SCP config;
+    HYBRID_PROX_SELFTEST's for '_hybrid-prox')."""
     from riskaversetrajopt_torch.core.config import DroneScenario, SCPConfig
     from riskaversetrajopt_torch.models.drone import DroneModel
     from riskaversetrajopt_torch.scp.driver import SAATrajOpt
 
+    prox = backend == "_hybrid-prox"
+    kw = dict(hybrid_cap=HYBRID_PROX_SELFTEST["hybrid_cap"]) if prox else {}
     return SAATrajOpt(
         DroneModel(DroneScenario(), device=device), method="saa",
-        scp_cfg=SCPConfig(num_iters=num_iters, gate_iters=2,
-                          gate_row_scale=1e-7, gate_bound_l=-0.1,
-                          gate_bound_u=0.1),
-        device=device, group=group)
+        scp_cfg=SCPConfig(
+            num_iters=num_iters,
+            gate_iters=HYBRID_PROX_SELFTEST["gate_iters"] if prox else 2,
+            gate_row_scale=1e-7, gate_bound_l=-0.1, gate_bound_u=0.1),
+        qp_backend=backend, device=device, group=group, **kw)
+
+
+SELFTEST_CAR_M = 8
+
+
+def selftest_car_opt(device, num_iters: int = 2, group=None,
+                     backend: str = "admm"):
+    """The car SCP of `--model car`: CarScenario(M=SELFTEST_CAR_M), its
+    reference config (the first iteration gated) cut to `num_iters`."""
+    import dataclasses
+
+    from riskaversetrajopt_torch.core.config import CarScenario
+    from riskaversetrajopt_torch.models.car import CarModel
+    from riskaversetrajopt_torch.scp.driver import SAATrajOpt
+
+    model = CarModel(CarScenario(M=SELFTEST_CAR_M), device=device)
+    return SAATrajOpt(model, scp_cfg=dataclasses.replace(
+        model.default_scp_config(), num_iters=num_iters),
+        qp_backend=backend, device=device, group=group)
+
+
+def selftest_car_omegas(M: int = SELFTEST_CAR_M):
+    """The car's omegas: the port's sampler on a CPU generator seeded 0
+    (the same numbers on every process)."""
+    from riskaversetrajopt_torch.core.config import CarScenario
+    from riskaversetrajopt_torch.models.car import CarModel
+
+    model = CarModel(CarScenario(M=M), device="cpu")
+    return model.sample(torch.Generator().manual_seed(0), M, "saa")
 
 
 def selftest_scp_omegas(M: int = SELFTEST_M, path: Optional[str] = None):
@@ -397,6 +507,79 @@ def _selftest_scp(device, omegas=None):
             "collectives": collective_summary(log, int(res.qp_iters.sum()))}
 
 
+def _scp_payload(res, log):
+    return {"us_history": res.us_history.cpu().reshape(-1).tolist(),
+            "qp_iters": res.qp_iters.tolist(),
+            "qp_solved": res.qp_solved.tolist(),
+            "collectives": collective_summary(log, int(res.qp_iters.sum()))}
+
+
+def selftest_ds_vector(n: int = 1024):
+    """The float32 vector of the worker's compensated-sum check (numpy
+    seed 7; the same numbers on every process)."""
+    return torch.from_numpy(
+        np.random.default_rng(7).standard_normal(n).astype(np.float32))
+
+
+def _selftest_backends(device, backends, num_iters, omegas=None,
+                       model="drone", checkpoint=None):
+    """The SCP with each of `backends` on sample-sharded omegas (the
+    drone's of scp mode, or the car's); one payload per backend: the
+    control history, the QP iterations and flags, the collectives. With
+    `checkpoint` (a directory) also two solves of CHECKPOINT_BACKEND
+    resumed at num_iters - 1 to num_iters: "checkpoint" from a sharded
+    solve's file, "from_unsharded" from the file of process 0's unsharded
+    solve (each file copied aside by process 0 before the resume).
+    "ds_sum" holds the compensated cross-process sum of
+    selftest_ds_vector."""
+    import shutil
+    from pathlib import Path
+
+    from riskaversetrajopt_torch.ops.dsjit import sum1_ds
+
+    group = dist.group.WORLD
+    if model == "car":
+        om, make = selftest_car_omegas(), selftest_car_opt
+    else:
+        om, make = selftest_scp_omegas(path=omegas), selftest_scp_opt
+    local = shard_samples_global(om)
+    out = {}
+    for b in backends:
+        opt = make(device, num_iters, group, backend=b)
+        with audit() as log:
+            res = opt.solve(local, alpha=0.2)
+        out[b] = _scp_payload(res, log)
+    if checkpoint is not None:
+        b = CHECKPOINT_BACKEND
+        path = Path(checkpoint) / "sharded.npz"
+        with audit() as log:
+            make(device, num_iters - 1, group, backend=b).solve(
+                local, alpha=0.2, checkpoint_path=path)
+            if group_rank() == 0:
+                shutil.copy(path, path.with_name(
+                    f"sharded_iter{num_iters - 1}.npz"))
+            res = make(device, num_iters, group, backend=b).solve(
+                local, alpha=0.2, checkpoint_path=path)
+        out["checkpoint"] = dict(_scp_payload(res, log), backend=b)
+        path = Path(checkpoint) / "unsharded.npz"
+        if group_rank() == 0:
+            make(device, num_iters - 1, backend=b).solve(
+                om, alpha=0.2, checkpoint_path=path)
+            shutil.copy(path, path.with_name(
+                f"unsharded_iter{num_iters - 1}.npz"))
+        SampleShard(om[0].shape[0], group).barrier(device)
+        with audit() as log:
+            res = make(device, num_iters, group, backend=b).solve(
+                local, alpha=0.2, checkpoint_path=path)
+        out["from_unsharded"] = dict(_scp_payload(res, log), backend=b)
+    v = selftest_ds_vector().to(device)
+    shard = SampleShard(v.numel())
+    ((h, lo),) = shard.ds_sum(sum1_ds(v[shard.offset:shard.offset
+                                         + shard.M_local]))
+    out["ds_sum"] = [float(h), float(lo)]
+    return out
+
+
 def collective_summary(log, iters):
     """Calls, elements and bytes of the collectives in `log` (an `audit`
     list): in all, per ADMM iteration over `iters`, the largest."""
@@ -408,10 +591,13 @@ def collective_summary(log, iters):
 
 
 def _selftest(init_method: str, world_size: int, rank: int, device: str,
-              mode: str, omegas: Optional[str] = None) -> None:
+              mode: str, omegas: Optional[str] = None, backends=None,
+              **kw) -> None:
     dev = initialize(init_method, world_size, rank, device=device)
     torch.backends.cuda.matmul.allow_tf32 = False
-    if mode == "scp":
+    if mode == "scp" and backends:
+        out = _selftest_backends(dev, backends, omegas=omegas, **kw)
+    elif mode == "scp":
         out = _selftest_scp(dev, omegas)
     else:
         out = {"qp": _selftest_qp, "batch": _selftest_batch}[mode](dev)
@@ -435,11 +621,21 @@ if __name__ == "__main__":
     ap.add_argument("--mode", choices=("qp", "batch", "scp"), default="qp")
     ap.add_argument("--omegas", default=None,
                     help="scp mode: an .npz of the DroneOmega fields")
+    ap.add_argument("--backends", default=None,
+                    help="scp mode: comma-separated backends, each solved")
+    ap.add_argument("--scp-iters", type=int, default=3)
+    ap.add_argument("--model", choices=("drone", "car"), default="drone")
+    ap.add_argument("--checkpoint", default=None,
+                    help="with --backends: a directory for the checkpoint")
     args = ap.parse_args()
     if args.selftest:
         # run the package's module, not this __main__ copy of it: the solver
         # records its collectives in the package module's audit log
         from riskaversetrajopt_torch.parallel import distributed
 
-        distributed._selftest(args.init_method, args.world_size, args.rank,
-                              args.device, args.mode, args.omegas)
+        distributed._selftest(
+            args.init_method, args.world_size, args.rank, args.device,
+            args.mode, args.omegas,
+            backends=args.backends.split(",") if args.backends else None,
+            num_iters=args.scp_iters, model=args.model,
+            checkpoint=args.checkpoint)

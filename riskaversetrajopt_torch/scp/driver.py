@@ -23,7 +23,10 @@ process passes its slice of the omegas (parallel/distributed.py), the
 define phase stays local, the QP is solved sample-sharded
 (ops/saa_qp.py) and the controls, t, the L2 errors and the Monte-Carlo
 statistics come out the same on every process; `xs` holds this process's
-samples. Only the 'admm' backend runs sharded so far (ROADMAP, Queue A).
+samples. Every backend runs sharded but the two fused ones, whose kernels
+the reference never splits over the sample axis (`_FUSED_UNSHARDED`). A
+sharded solve's checkpoint has the unsharded file layout: process 0 writes
+the gathered warm starts, and every process resumes from its slice.
 """
 
 from __future__ import annotations
@@ -52,6 +55,8 @@ from riskaversetrajopt_torch.ops.saa_qp import (
     SAAQPStatic,
     build_bounds,
     build_objective,
+    gather_warm,
+    local_warm,
     pack_saa_qp_data,
     solve_saa_qp,
 )
@@ -62,6 +67,12 @@ from riskaversetrajopt_torch.utils.profiling import annotate
 _BACKENDS = ("admm", "ipm", "hybrid", "admm-ir", "admm-ds", "_hybrid-prox",
              "_admm-pallas", "_admm-pallas-f")
 _FUSED = ("_admm-pallas", "_admm-pallas-f")
+_FUSED_UNSHARDED = (
+    "{!r} does not run sample-sharded: the reference has no sharded form of "
+    "its fused kernel (the pallas_call sits under no shard_map, so GSPMD "
+    "cannot split it over the sample axis), and a sharded chunk would need "
+    "a collective inside the kernel; drop `group`, or shard with 'admm', "
+    "'ipm', 'hybrid', 'admm-ir', 'admm-ds' or '_hybrid-prox'")
 # the backends whose QPSolution.rho is an adapted ADMM rho, carried into the
 # next QP; the others carry the previous rho on. The JAX driver keeps two
 # lists: solve and solve_many carry 'admm-ds''s rho (driver.py:550),
@@ -129,11 +140,8 @@ class SAATrajOpt:
             raise ValueError(_REFUSED[qp_backend])
         if qp_backend not in _BACKENDS:
             raise ValueError(f"unknown qp backend {qp_backend!r}")
-        if group is not None and qp_backend != "admm":
-            raise ValueError(
-                f"{qp_backend!r} does not run sample-sharded yet: only 'admm' "
-                "does (ROADMAP.md, Queue A); drop `group` to solve on one "
-                "process")
+        if group is not None and qp_backend in _FUSED:
+            raise ValueError(_FUSED_UNSHARDED.format(qp_backend))
         if qp_backend in _FUSED and dtype != torch.float32:
             raise ValueError(
                 f"{qp_backend!r} runs a float32 fused kernel; pass "
@@ -244,28 +252,29 @@ class SAATrajOpt:
                 st, data, scp_iter, self.admm_cfg, x0=x0, y0=y0, rho0=rho0,
             )
         if self.qp_backend == "ipm":
-            return self._ipm_solve(st, data, scp_iter)
+            return self._ipm_solve(st, data, scp_iter, shard)
         if self.qp_backend == "admm-ir":
             return solve_saa_qp_ir(st, data, scp_iter, self.admm_cfg,
-                                   ir=self.ir_cfg, x0=x0, y0=y0)
+                                   ir=self.ir_cfg, x0=x0, y0=y0, shard=shard)
         if self.qp_backend == "_hybrid-prox":
-            return self._hybrid_prox_solve(st, data, scp_iter, x0, y0)
+            return self._hybrid_prox_solve(st, data, scp_iter, x0, y0, shard)
         if self.qp_backend == "admm-ds":
             # double-single iterates, which track the float64 solution
             # branch through the degenerate post-gating QPs; the eps
             # schedule does not apply (driver.py:265-280)
             return solve_saa_qp_ds(st, data, scp_iter, self.admm_cfg, x0=x0,
                                    y0=y0, rho0=rho0,
-                                   ds_kkt_passes=self.admm_cfg.ds_kkt_passes)
+                                   ds_kkt_passes=self.admm_cfg.ds_kkt_passes,
+                                   shard=shard)
         if (self.qp_backend == "hybrid"
                 and scp_iter < self.scp_cfg.gate_iters + 3):
             # the first post-gating QPs: Mehrotra reaches the solution's
             # basin in a few dozen iterations, and ADMM warm-started from
             # its point (with cfg.rho) certifies it and keeps the
             # prox-to-previous-iterate behavior (driver.py:402-422)
-            si = self._ipm_solve(st, data, scp_iter)
+            si = self._ipm_solve(st, data, scp_iter, shard)
             return solve_saa_qp(st, data, scp_iter, self.admm_cfg, x0=si.x,
-                                y0=si.y)
+                                y0=si.y, shard=shard)
         eps_scale = None
         if self.admm_cfg.eps_sched_iters > 0:
             # inexact-SCP tolerance schedule: early subproblems terminate at
@@ -275,14 +284,15 @@ class SAATrajOpt:
         return solve_saa_qp(st, data, scp_iter, self.admm_cfg, x0=x0, y0=y0,
                             rho0=rho0, eps_scale=eps_scale, shard=shard)
 
-    def _ipm_solve(self, st, data, scp_iter: int):
+    def _ipm_solve(self, st, data, scp_iter: int, shard=None):
         """The interior-point solve of one SCP subproblem."""
         _, q = build_objective(st, data)
-        l, u = build_bounds(st, data, scp_iter)
-        return solve_qp_ipm(SAAQPOps(st, data, scp_iter), q, l, u,
+        l, u = build_bounds(st, data, scp_iter, shard)
+        return solve_qp_ipm(SAAQPOps(st, data, scp_iter, shard=shard), q, l, u,
                             n_eq=st.n_fc, cfg=self.ipm_cfg)
 
-    def _hybrid_prox_solve(self, st, data, scp_iter: int, x0, y0):
+    def _hybrid_prox_solve(self, st, data, scp_iter: int, x0, y0,
+                           shard=None):
         """'_hybrid-prox' (driver.py:348-400): an ADMM leg capped at
         hybrid_cap iterations keeps the warm path; if it does not certify, a
         proximal IPM centered at its iterate finds (about) the projection of
@@ -290,19 +300,22 @@ class SAATrajOpt:
         certifies the result. Validated in JAX at small M only."""
         quick_cfg = dataclasses.replace(self.admm_cfg, max_iter=self.hybrid_cap,
                                         polish=False)
-        s1 = solve_saa_qp(st, data, scp_iter, quick_cfg, x0=x0, y0=y0)
+        s1 = solve_saa_qp(st, data, scp_iter, quick_cfg, x0=x0, y0=y0,
+                          shard=shard)
         if s1.solved:
             return s1
         ops = SAAQPOps(st, data, scp_iter,
-                       kkt_refine_iters=self.admm_cfg.kkt_refine_iters)
+                       kkt_refine_iters=self.admm_cfg.kkt_refine_iters,
+                       shard=shard)
         _, q = build_objective(st, data)
-        l, u = build_bounds(st, data, scp_iter)
+        l, u = build_bounds(st, data, scp_iter, shard)
         sig = torch.tensor(self.hybrid_prox, dtype=self.dtype,
                            device=self.device)
         si = solve_qp_ipm(_ProxOps(ops, sig), q - sig * s1.x, l, u,
                           n_eq=st.n_fc, cfg=self.ipm_cfg)
         fin_cfg = dataclasses.replace(self.admm_cfg, max_iter=self.hybrid_cap)
-        s2 = solve_saa_qp(st, data, scp_iter, fin_cfg, x0=si.x, y0=si.y)
+        s2 = solve_saa_qp(st, data, scp_iter, fin_cfg, x0=si.x, y0=si.y,
+                          shard=shard)
         return s2._replace(iters=s1.iters + si.iters + s2.iters)
 
     # -- full SCP solve ----------------------------------------------------
@@ -324,14 +337,15 @@ class SAATrajOpt:
         to the file, and a call with an existing file resumes at the
         recorded iteration from the saved iterate. The resumed result's
         per-iteration arrays (l2_errors, qp_iters, ...) cover only the
-        remaining iterations."""
+        remaining iterations. Sharded (`group`), the file has the unsharded
+        layout (process 0 writes it, every process waits for the write)
+        and every process resumes from its samples' slice of it, so a
+        sharded solve resumes from an unsharded one's file and the other
+        way round."""
         if M is None:
             M = omegas[0].shape[0]
         if checkpoint_path is None:
             return self._solve_core(omegas, alpha, M)
-        if self.group is not None:
-            raise ValueError("checkpoint/resume of a sample-sharded solve is "
-                             "not supported")
         start_iter, resume = self._load_checkpoint(checkpoint_path)
         return self._solve_core(
             omegas, alpha, M, start_iter=start_iter,
@@ -354,10 +368,22 @@ class SAATrajOpt:
              torch.tensor(rho, **kw)),
         )
 
-    def _save_checkpoint(self, path, scp_iter: int, us, warm):
+    def _save_checkpoint(self, path, scp_iter: int, us, warm, st, shard):
+        """Snapshot the SCP state; sharded, process 0 writes the global
+        warm starts and every process waits on the host for the file
+        (SampleShard.barrier: an all-reduce alone would not wait with
+        NCCL)."""
         host = lambda t: t.detach().cpu().numpy()  # noqa: E731
-        ckpt.save(path, scp_iter, host(us), host(warm[0]), host(warm[1]),
-                  warm_rho=host(warm[2]))
+        x, y = warm[0], warm[1]
+        if shard is not None:
+            x, y = gather_warm(st, shard, x, y)
+        if shard is None or shard.rank == 0:
+            ckpt.save(path, scp_iter, host(us), host(x), host(y),
+                      warm_rho=host(warm[2]))
+        if shard is not None:
+            # no process goes on (and may read the file) before it is in
+            # place: process 0 joins this host-side wait after the rename
+            shard.barrier(x.device)
 
     def _cold_warm(self, st: SAAQPStatic):
         kw = dict(dtype=self.dtype, device=self.device)
@@ -406,6 +432,8 @@ class SAATrajOpt:
         warm = self._cold_warm(st._replace(M=M))
         if resume is not None:
             us_prev, warm = resume
+            if shard is not None:
+                warm = (*local_warm(st, shard, warm[0], warm[1]), warm[2])
         t_risk = warm[0][-1]
         l2s, qp_iters, qp_solved, us_hist = [], [], [], []
         for scp_iter in range(start_iter, self.scp_cfg.num_iters):
@@ -427,7 +455,7 @@ class SAATrajOpt:
                 path, every = ckpt
                 done = scp_iter + 1
                 if done % every == 0 or done == self.scp_cfg.num_iters:
-                    self._save_checkpoint(path, done, us, warm)
+                    self._save_checkpoint(path, done, us, warm, st, shard)
         xs = rollout_batch(self.model, us_prev, omegas)
         kw = dict(dtype=self.dtype, device=self.device)
         return SCPResult(
@@ -481,9 +509,6 @@ class SAATrajOpt:
 
         start_iter, resume, ckpt = 0, None, None
         if checkpoint_path is not None:
-            if self.group is not None:
-                raise ValueError("checkpoint/resume of a sample-sharded "
-                                 "solve is not supported")
             start_iter, resume = self._load_checkpoint(checkpoint_path)
             ckpt = (checkpoint_path, 1)
         res = self._solve_core(omegas, alpha, M, start_iter, ckpt, resume,

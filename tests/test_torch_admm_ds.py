@@ -182,7 +182,7 @@ class _RhoSpy:
         self.rho0 = []
 
     def __call__(self, st, data, scp_iter, cfg, x0=None, y0=None, rho0=None,
-                 ds_kkt_passes=1):
+                 ds_kkt_passes=1, shard=None):
         self.rho0.append(None if rho0 is None else float(rho0))
         return tadmm.QPSolution(
             x=torch.zeros_like(x0), y=torch.zeros_like(y0),

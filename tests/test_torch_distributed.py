@@ -11,6 +11,7 @@ import os
 import socket
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -49,32 +50,44 @@ def _free_port():
     return port
 
 
-def _run_pair(mode, extra=()):
-    """Two selftest workers of `mode` (gloo, one thread each; `extra`
-    arguments appended); returns their SELFTEST_OK payloads, rank 0
-    first."""
+def _start_pair(mode, extra=()):
+    """Start two selftest workers of `mode` (gloo, one thread each; `extra`
+    arguments appended), each writing to a temporary file; _join_pair
+    collects them."""
     env = dict(os.environ)
     env["PYTHONPATH"] = str(REPO) + os.pathsep + env.get("PYTHONPATH", "")
     env["OMP_NUM_THREADS"] = "1"
     init = f"tcp://localhost:{_free_port()}"
-    procs = [subprocess.Popen(
-        [sys.executable, "-m", "riskaversetrajopt_torch.parallel.distributed",
-         "--selftest", "--init-method", init, "--world-size", "2",
-         "--rank", str(r), "--device", "cpu", "--mode", mode, *extra],
-        env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for r in range(2)]
-    outs = []
+    pair = []
+    for r in range(2):
+        out = tempfile.TemporaryFile("w+")
+        pair.append((subprocess.Popen(
+            [sys.executable, "-m",
+             "riskaversetrajopt_torch.parallel.distributed", "--selftest",
+             "--init-method", init, "--world-size", "2", "--rank", str(r),
+             "--device", "cpu", "--mode", mode, *extra],
+            env=env, stdout=out, stderr=subprocess.STDOUT, text=True), out))
+    return pair
+
+
+def _join_pair(pair):
+    """Wait for the workers of _start_pair (each killed if it outlives
+    TIMEOUT) and return their SELFTEST_OK payloads, rank 0 first."""
     try:
-        for p in procs:
-            out, _ = p.communicate(timeout=TIMEOUT)
-            outs.append(out)
+        for p, _ in pair:
+            p.wait(timeout=TIMEOUT)
     finally:
-        for p in procs:
+        for p, _ in pair:
             if p.poll() is None:
                 p.kill()
-                p.communicate()
+                p.wait()
+    outs = []
+    for _, f in pair:
+        f.seek(0)
+        outs.append(f.read())
+        f.close()
     payloads = []
-    for r, (p, out) in enumerate(zip(procs, outs)):
+    for r, ((p, _), out) in enumerate(zip(pair, outs)):
         assert p.returncode == 0, f"worker {r} failed:\n{out[-3000:]}"
         line = [ln for ln in out.splitlines() if ln.startswith("SELFTEST_OK ")]
         assert line, f"worker {r} printed no result:\n{out[-3000:]}"
@@ -82,6 +95,11 @@ def _run_pair(mode, extra=()):
     assert [p["rank"] for p in payloads] == [0, 1]
     assert all(p["nproc"] == 2 for p in payloads)
     return payloads
+
+
+def _run_pair(mode, extra=()):
+    """Two selftest workers of `mode` run to their end: their payloads."""
+    return _join_pair(_start_pair(mode, extra))
 
 
 @pytest.fixture(scope="module")
@@ -225,7 +243,10 @@ def test_collective_audit_no_jacobian_communication(request, mode):
 
 def test_mesh_and_shard_helpers_single_process():
     """One process is the 1 x 1 grid: no group, the whole sample axis, no
-    shard; the sharded driver refuses what it cannot run sharded."""
+    shard; the sharded driver refuses what it cannot run sharded: the two
+    fused backends, whose kernels the reference never splits over the
+    sample axis (every other backend runs sharded,
+    tests/test_torch_sharded_backends.py)."""
     from riskaversetrajopt_torch.core.config import DroneScenario
     from riskaversetrajopt_torch.models.drone import DroneModel
     from riskaversetrajopt_torch.scp.driver import SAATrajOpt
@@ -238,7 +259,8 @@ def test_mesh_and_shard_helpers_single_process():
     assert all(torch.equal(x, y) for x, y in zip(local, om))
     assert tdist.process_sample_slice(16) == slice(0, 16)
     model = DroneModel(DroneScenario(), device="cpu")
-    for backend in ("ipm", "hybrid", "admm-ir", "admm-ds", "_hybrid-prox"):
-        with pytest.raises(ValueError, match="sample-sharded"):
+    for backend in ("_admm-pallas", "_admm-pallas-f"):
+        with pytest.raises(ValueError, match="sample-sharded.*no sharded "
+                                             "form.*collective inside"):
             SAATrajOpt(model, qp_backend=backend, device="cpu",
                        group=object())
