@@ -16,6 +16,10 @@ from riskaversetrajopt_tpu.core.config import SolverConfig
 from riskaversetrajopt_tpu.ops import admm as jadmm
 from riskaversetrajopt_tpu.ops import cvar as jcvar
 from riskaversetrajopt_tpu.ops import saa_qp as jqp
+from tests.port_harness import (  # noqa: F401 (autouse fixtures)
+    module_time_limit,
+    time_limit_per_test,
+)
 from tests.test_saa_qp import make_problem
 
 

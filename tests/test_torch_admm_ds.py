@@ -28,6 +28,10 @@ from riskaversetrajopt_tpu.core.config import (
 from riskaversetrajopt_tpu.models.drone import DroneModel
 from riskaversetrajopt_tpu.ops import admm_ds as jads
 from riskaversetrajopt_tpu.scp.driver import SAATrajOpt
+from tests.port_harness import (  # noqa: F401 (autouse fixtures)
+    module_time_limit,
+    time_limit_per_test,
+)
 
 M = 8
 GOLDEN_SCP = dict(gate_iters=2, gate_row_scale=1e-7, gate_bound_l=-0.1,

@@ -21,6 +21,10 @@ from riskaversetrajopt_tpu.models.drone import DroneModel
 from riskaversetrajopt_tpu.ops import admm as jadmm
 from riskaversetrajopt_tpu.ops import saa_qp as jqp
 from riskaversetrajopt_tpu.ops.rollout import linearize_batch
+from tests.port_harness import (  # noqa: F401 (autouse fixtures)
+    module_time_limit,
+    time_limit_per_test,
+)
 from tests.test_saa_qp import make_problem
 
 M = 8

@@ -35,6 +35,10 @@ from riskaversetrajopt_tpu.ops.saa_qp import (
     build_objective,
 )
 from riskaversetrajopt_tpu.scp.driver import SAATrajOpt
+from tests.port_harness import (  # noqa: F401 (autouse fixtures)
+    module_time_limit,
+    time_limit_per_test,
+)
 
 M = 8
 # float64 on both sides: the same elementwise formulas, so agreement is at

@@ -13,6 +13,10 @@ from riskaversetrajopt_torch.ops import admm as tadmm
 from riskaversetrajopt_tpu.core.config import SolverConfig
 from riskaversetrajopt_tpu.native.qp import solve_qp_native
 from riskaversetrajopt_tpu.ops import admm as jadmm
+from tests.port_harness import (  # noqa: F401 (autouse fixtures)
+    module_time_limit,
+    time_limit_per_test,
+)
 from tests.test_admm import check_kkt
 
 CFG = dict(eps_abs=1e-8, eps_rel=1e-8, max_iter=20000)

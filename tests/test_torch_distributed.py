@@ -2,9 +2,10 @@
 (riskaversetrajopt_torch/parallel/): two gloo processes on the CPU, each
 holding half of the samples, run the selftest worker of
 parallel/distributed.py. The port's counterpart of tests/test_distributed.py
-(the structured QP, the batch axis) and of tests/test_sharding.py (the
-sharded SCP against the unsharded one, the collective audit). Every worker
-is killed if it outlives its timeout."""
+(the structured QP, the batch axis, the collective audit); the sharded
+SCP, the counterpart of tests/test_sharding.py, is in
+tests/test_torch_distributed_scp.py. Every worker is killed if it outlives
+its timeout."""
 
 import json
 import os
@@ -26,20 +27,13 @@ from riskaversetrajopt_torch.parallel.mesh import make_mesh, shard_samples
 from riskaversetrajopt_tpu.core.config import SolverConfig
 from riskaversetrajopt_tpu.ops import saa_qp as jqp
 from riskaversetrajopt_tpu.parallel.distributed import selftest_problem
+from tests.port_harness import (  # noqa: F401 (autouse fixtures)
+    module_time_limit,
+    time_limit_per_test,
+)
 
 REPO = Path(__file__).resolve().parents[1]
 TIMEOUT = 600  # seconds per worker; each takes 5-50 s alone
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """The in-process references run on one thread, as the workers do: the
-    M=16 solves are many small ops, which threads only slow down when
-    other test processes share the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _free_port():
@@ -124,11 +118,6 @@ def jax_omegas(tmp_path_factory):
     return str(path)
 
 
-@pytest.fixture(scope="module")
-def scp_pair(jax_omegas):
-    return _run_pair("scp", ("--omegas", jax_omegas))
-
-
 def _cap(n, K, M):
     """The audit's bound (tests/test_sharding.py:150-191): nothing larger
     than the (n+2)^2 Schur block or an M x max(K, n) block, nothing in the
@@ -195,50 +184,25 @@ def test_two_process_batch_axis_matches_each_instance():
     assert not np.allclose(a["xs"][0], a["xs"][1])
 
 
-def test_sharded_scp_matches_unsharded(scp_pair, jax_omegas):
-    """The drone SCP (M=16, 6 iterations) on sample-sharded omegas against
-    the unsharded port on the same omegas, those of tests/test_sharding.py
-    (JAX's sampler, PRNGKey(0)): the same QP iteration counts, both
-    processes bit for bit alike, Monte Carlo included; the controls within
-    rtol 1e-8 / atol 1e-10 and the L2 errors within rtol 1e-6, the
-    contract of tests/test_sharding.py:45-54."""
-    a, b = scp_pair
-    for key in ("us", "l2", "qp_iters", "mc_safe", "mc_avar"):
-        assert a[key] == b[key], key
-    opt = tdist.selftest_scp_opt("cpu")
-    om = tdist.selftest_scp_omegas(path=jax_omegas)
-    res = opt.solve(om, alpha=0.2)
-    assert a["qp_iters"] == res.qp_iters.tolist()
-    np.testing.assert_allclose(np.array(a["us"]),
-                               res.us.reshape(-1).numpy(), rtol=1e-8,
-                               atol=1e-10)
-    np.testing.assert_allclose(np.array(a["l2"]), res.l2_errors.numpy(),
-                               rtol=1e-6, atol=1e-10)
-    mc = opt.monte_carlo(res.us, om, 0.2)
-    assert a["mc_safe"] == float(mc["safe_frac"])
-    np.testing.assert_allclose(a["mc_avar"], float(mc["avar"]), rtol=1e-6,
-                               atol=1e-9)
-
-
-@pytest.mark.parametrize("mode", ["qp", "scp"])
-def test_collective_audit_no_jacobian_communication(request, mode):
-    """Every collective of the sharded QP and of the sharded SCP (with its
-    Monte Carlo) is recorded (parallel/distributed.audit): the only
-    traffic is all-reduces of at most max((n+2)^2, M max(K, n)) entries —
-    the Schur block, the CVaR couplings, O(M)-wide vectors — and nothing
-    near a G shard (M/2 K n)."""
-    a, _ = request.getfixturevalue(f"{mode}_pair")
-    c = a["f64"]["collectives"] if mode == "qp" else a["collectives"]
-    if mode == "qp":
-        st, _ = tdist.selftest_problem(tdist.SELFTEST_M)
-        n, K, M = st.n, st.K, st.M
-    else:
-        n, K, M = 60, 60, tdist.SELFTEST_M
+def assert_no_jacobian_communication(collectives, n, K, M):
+    """The collective audit (parallel/distributed.audit records every
+    collective): the only traffic is all-reduces of at most
+    max((n+2)^2, M max(K, n)) entries — the Schur block, the CVaR
+    couplings, O(M)-wide vectors — and nothing near a G shard (M/2 K n)."""
+    c = collectives
     cap, g_shard = _cap(n, K, M)
     assert c["calls"] > 0 and set(c["ops"]) <= {"sum", "max"}
     assert c["max_elements"] <= cap < g_shard
     # the factorization's (n+2)^2 Schur block is the largest
     assert c["max_elements"] == (n + 2) ** 2
+
+
+def test_collective_audit_no_jacobian_communication(qp_pair):
+    """The audit of the sharded QP (the SCP's, with its Monte Carlo, is in
+    tests/test_torch_distributed_scp.py)."""
+    st, _ = tdist.selftest_problem(tdist.SELFTEST_M)
+    assert_no_jacobian_communication(qp_pair[0]["f64"]["collectives"], st.n,
+                                     st.K, st.M)
 
 
 def test_mesh_and_shard_helpers_single_process():

@@ -26,6 +26,10 @@ from riskaversetrajopt_torch.ops.nlp_ipm import NLPConfig as TConfig
 from riskaversetrajopt_tpu.core.config import DroneScenario
 from riskaversetrajopt_tpu.models.drone_gaussian import GaussianDronePlanner
 from riskaversetrajopt_tpu.ops.nlp_ipm import NLPConfig
+from tests.port_harness import (  # noqa: F401 (autouse fixtures)
+    module_time_limit,
+    time_limit_per_test,
+)
 
 ALPHA = 0.2
 GOLD = (Path(__file__).parent / "fixtures"

@@ -13,6 +13,10 @@ import torch
 from riskaversetrajopt_torch.ops import admm as tadmm
 from riskaversetrajopt_torch.ops import ds as tds
 from riskaversetrajopt_tpu.ops import ds as jds
+from tests.port_harness import (  # noqa: F401 (autouse fixtures)
+    module_time_limit,
+    time_limit_per_test,
+)
 
 
 def _pair(rng, n, scale_b=1e-4):

@@ -13,6 +13,10 @@ import torch
 
 from riskaversetrajopt_torch.ops import dsjit as tds
 from riskaversetrajopt_tpu.ops import dsjit as jds
+from tests.port_harness import (  # noqa: F401 (autouse fixtures)
+    module_time_limit,
+    time_limit_per_test,
+)
 
 
 def _rand(seed, shape, scale=1.0):

@@ -9,6 +9,10 @@ import torch
 
 import torch_entry
 from riskaversetrajopt_torch import interop
+from tests.port_harness import (  # noqa: F401 (autouse fixtures)
+    module_time_limit,
+    time_limit_per_test,
+)
 
 
 def test_entry_matches_jax_entry_step():

@@ -24,6 +24,10 @@ from riskaversetrajopt_tpu.experiments import common as jcommon
 from riskaversetrajopt_tpu.models.drone import DroneModel
 from riskaversetrajopt_tpu.scp.driver import SAATrajOpt
 from riskaversetrajopt_tpu.utils import checkpoint as jckpt
+from tests.port_harness import (  # noqa: F401 (autouse fixtures)
+    module_time_limit,
+    time_limit_per_test,
+)
 
 # the golden SCP config (test_reference_parity.py:224-227)
 GOLDEN_SCP = dict(gate_iters=2, gate_row_scale=1e-7, gate_bound_l=-0.1,

@@ -21,6 +21,10 @@ from riskaversetrajopt_torch.ops.gaussian import (
 )
 from riskaversetrajopt_tpu.core.config import CarScenario
 from riskaversetrajopt_tpu.models.car_gaussian import GaussianCarPlanner
+from tests.port_harness import (  # noqa: F401 (autouse fixtures)
+    module_time_limit,
+    time_limit_per_test,
+)
 
 
 def _planner(**kw):

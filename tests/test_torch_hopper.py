@@ -25,6 +25,10 @@ from riskaversetrajopt_torch.ops import nlp_ipm as tn
 from riskaversetrajopt_tpu.core import config as jconfig
 from riskaversetrajopt_tpu.models.hopper import HopperModel
 from riskaversetrajopt_tpu.ops import nlp_ipm as jn
+from tests.port_harness import (  # noqa: F401 (autouse fixtures)
+    module_time_limit,
+    time_limit_per_test,
+)
 
 METHODS = ("saa", "baseline")
 

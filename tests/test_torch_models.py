@@ -14,6 +14,10 @@ from riskaversetrajopt_torch.core import config as tconfig
 from riskaversetrajopt_torch.models.drone import DroneModel as TDroneModel
 from riskaversetrajopt_tpu.core import config as jconfig
 from riskaversetrajopt_tpu.models.drone import DroneModel
+from tests.port_harness import (  # noqa: F401 (autouse fixtures)
+    module_time_limit,
+    time_limit_per_test,
+)
 
 M = 50
 

@@ -13,6 +13,10 @@ from riskaversetrajopt_torch.native import qp as tnative
 from riskaversetrajopt_torch.ops.admm import solve_dense_qp
 from riskaversetrajopt_torch.ops.cvar import avar
 from riskaversetrajopt_tpu.native import qp as jnative
+from tests.port_harness import (  # noqa: F401 (autouse fixtures)
+    module_time_limit,
+    time_limit_per_test,
+)
 
 TIGHT = dict(eps_abs=1e-9, eps_rel=1e-9)
 

@@ -19,6 +19,10 @@ from riskaversetrajopt_torch.experiments import (
     terrains_gaussian,
 )
 from riskaversetrajopt_tpu.experiments import common as jcommon
+from tests.port_harness import (  # noqa: F401 (autouse fixtures)
+    module_time_limit,
+    time_limit_per_test,
+)
 
 GOLD = (Path(__file__).parent / "fixtures"
         / "gold_drone_m50_a0.2_seed0_iters15.npy")

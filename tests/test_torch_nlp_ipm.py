@@ -18,6 +18,10 @@ import torch
 
 from riskaversetrajopt_torch.ops import nlp_ipm as tn
 from riskaversetrajopt_tpu.ops import nlp_ipm as jn
+from tests.port_harness import (  # noqa: F401 (autouse fixtures)
+    module_time_limit,
+    time_limit_per_test,
+)
 
 BIG = 1e15
 

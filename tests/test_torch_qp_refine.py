@@ -18,6 +18,10 @@ from riskaversetrajopt_torch.ops import qp_refine as tir
 from riskaversetrajopt_torch.ops import saa_qp as tqp
 from riskaversetrajopt_tpu.core.config import SolverConfig
 from riskaversetrajopt_tpu.ops import qp_refine as jir
+from tests.port_harness import (  # noqa: F401 (autouse fixtures)
+    module_time_limit,
+    time_limit_per_test,
+)
 from tests.test_qp_refine import _f64_residuals
 from tests.test_qp_refine import transition_qp_f32  # noqa: F401 (fixture)
 from tests.test_torch_dense_qp import _random

@@ -14,6 +14,10 @@ from riskaversetrajopt_torch.ops import rollout as trollout
 from riskaversetrajopt_tpu.core.config import DroneScenario
 from riskaversetrajopt_tpu.models.drone import DroneModel
 from riskaversetrajopt_tpu.ops import rollout as jrollout
+from tests.port_harness import (  # noqa: F401 (autouse fixtures)
+    module_time_limit,
+    time_limit_per_test,
+)
 
 M = 50
 

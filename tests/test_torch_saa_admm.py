@@ -22,6 +22,10 @@ from riskaversetrajopt_tpu.ops.saa_qp import (
     build_bounds,
     build_objective,
 )
+from tests.port_harness import (  # noqa: F401 (autouse fixtures)
+    module_time_limit,
+    time_limit_per_test,
+)
 from tests.test_saa_qp import dense_reference_A, make_problem
 
 CFG = SolverConfig()

@@ -22,6 +22,10 @@ from riskaversetrajopt_tpu.core.config import SolverConfig
 from riskaversetrajopt_tpu.ops.pallas.experimental import saa_admm as jk
 from riskaversetrajopt_tpu.ops.pallas.experimental import saa_admm_f as jkf
 from riskaversetrajopt_tpu.ops.saa_qp import build_objective, solve_saa_qp
+from tests.port_harness import (  # noqa: F401 (autouse fixtures)
+    module_time_limit,
+    time_limit_per_test,
+)
 from tests.test_saa_qp import dense_reference_A, make_problem
 from tests.test_torch_saa_admm import _setup
 

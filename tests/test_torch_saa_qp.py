@@ -3,6 +3,9 @@ the Schur-complement KKT solve) against the JAX package on the same float64
 problem data, at scp_iter in {0, 1, 2, 3} (gated and live iterations); and
 the float32 compensated factorization and the sweep precisions."""
 
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -18,6 +21,10 @@ from riskaversetrajopt_tpu.models.drone import DroneModel
 from riskaversetrajopt_tpu.ops import admm as jadmm
 from riskaversetrajopt_tpu.ops import saa_qp as jqp
 from riskaversetrajopt_tpu.ops.rollout import linearize_batch
+from tests.port_harness import (  # noqa: F401 (autouse fixtures)
+    module_time_limit,
+    time_limit_per_test,
+)
 from tests.test_saa_qp import make_problem
 
 # Everything is float64. Elementwise pieces agree to roundoff; the
@@ -49,8 +56,6 @@ def _t(a):
 def test_pack_matches():
     M = 6
     model = DroneModel(DroneScenario(M=M))
-    import jax
-
     om = model.sample(jax.random.PRNGKey(2), M)
     us = np.asarray(model.initial_guess(), np.float64) + 0.01
     lin = linearize_batch(model, jnp.asarray(us), om)
@@ -103,6 +108,24 @@ def test_operators_match(problems, scp_iter, baseline):
         np.testing.assert_allclose(a, b, err_msg=name, **SUMS)
 
 
+@functools.partial(jax.jit, static_argnums=(0, 3))
+def _jax_scaled_kkt_solve(st, data, scp_iter, chol_inverse, rhs):
+    """The JAX side of test_factorize_kkt_solve_match, compiled once (built
+    op by op, the first case paid ~20 s of compiles): the Ruiz scaling, rho
+    and sigma, and factorize + kkt_solve of rhs through the scaled
+    operator. Under jit x moves by at most 4e-7 of the test's tolerance."""
+    jops = jqp.SAAQPOps(st, data, scp_iter, kkt_chol_inverse=chol_inverse)
+    _, q = jqp.build_objective(st, data)
+    l, u = jqp.build_bounds(st, data, scp_iter)
+    sc_j = jadmm.ruiz_equilibrate(jops, q, l, u)
+    ls, us = sc_j.E * l, sc_j.E * u
+    rho_vec = jadmm.rho_vector(ls, us, 0.1)
+    sigma = jnp.full(q.shape[0], 1e-6)
+    sops = jadmm.ScaledOps(jops, sc_j)
+    x_j = sops.kkt_solve(sops.factorize(rho_vec, sigma), rhs, rho_vec, sigma)
+    return sc_j, rho_vec, sigma, x_j
+
+
 @pytest.mark.parametrize("chol_inverse", [False, True])
 @pytest.mark.parametrize("scp_iter", [0, 1, 2, 3])
 def test_factorize_kkt_solve_match(problems, scp_iter, chol_inverse):
@@ -110,20 +133,12 @@ def test_factorize_kkt_solve_match(problems, scp_iter, chol_inverse):
     right-hand side, through the Ruiz-scaled operator as the ADMM loop
     calls it."""
     st, data, tst, tdata = problems()
-    jops = jqp.SAAQPOps(st, data, jnp.asarray(scp_iter),
-                        kkt_chol_inverse=chol_inverse)
     tops = tqp.SAAQPOps(tst, tdata, scp_iter, kkt_chol_inverse=chol_inverse)
-    _, q = jqp.build_objective(st, data)
-    l, u = jqp.build_bounds(st, data, jnp.asarray(scp_iter))
-    sc_j = jadmm.ruiz_equilibrate(jops, q, l, u)
+    rhs = np.random.default_rng(7).standard_normal(st.n + st.M + 2)
+    sc_j, rho_vec, sigma, x_j = _jax_scaled_kkt_solve(
+        st, data, jnp.asarray(scp_iter), chol_inverse, jnp.asarray(rhs))
     sc_t = interop.scaling(sc_j)
-    ls, us = sc_j.E * l, sc_j.E * u
-    rho_vec = jadmm.rho_vector(ls, us, 0.1)
-    sigma = jnp.full(q.shape[0], 1e-6)
-    rhs = np.random.default_rng(7).standard_normal(q.shape[0])
-    x_j = np.asarray(jadmm.ScaledOps(jops, sc_j).kkt_solve(
-        jadmm.ScaledOps(jops, sc_j).factorize(rho_vec, sigma),
-        jnp.asarray(rhs), rho_vec, sigma))
+    x_j = np.asarray(x_j)
     tso = tadmm.ScaledOps(tops, sc_t)
     rv_t, sg_t = _t(rho_vec), _t(sigma)
     x_t = tso.kkt_solve(tso.factorize(rv_t, sg_t), _t(rhs), rv_t, sg_t).numpy()
@@ -166,12 +181,30 @@ def test_unported_options_raise(problems):
 @pytest.fixture(scope="module")
 def problem32():
     """The float32 M=12 problem of tests/test_pallas_admm.py on both sides."""
-    import jax
-
     st, data = make_problem(M=12)
     data32 = jax.tree.map(lambda x: jnp.asarray(x, jnp.float32), data)
     return (st, data32, tqp.SAAQPStatic(*st[:14]),
             interop.saa_qp_data(data32, dtype=torch.float32))
+
+
+@functools.partial(jax.jit, static_argnums=0)
+def _jax_compensated_solve(st, data32, scp_iter, rhs):
+    """The JAX side of test_compensated_factorize_float32_matches, compiled
+    once (built op by op, the first case paid ~20 s of compiles): the Ruiz
+    scaling, rho and sigma, the Cholesky factor of the compensated
+    factorization and the scaled kkt_solve of rhs. Under jit S and x move
+    by at most 0 and 3.6e-3 of the test's tolerances, the scaling and rho
+    not at all."""
+    jops = jqp.SAAQPOps(st, data32, scp_iter)
+    _, q = jqp.build_objective(st, data32)
+    l, u = jqp.build_bounds(st, data32, scp_iter)
+    sc_j = jadmm.ruiz_equilibrate(jops, q, l, u)
+    rho_vec = jadmm.rho_vector(sc_j.E * l, sc_j.E * u, 0.1).astype(jnp.float32)
+    sigma = jnp.full(q.shape[0], 1e-6, jnp.float32)
+    sops_j = jadmm.ScaledOps(jops, sc_j)
+    f_j = sops_j.factorize(rho_vec, sigma)
+    x_j = sops_j.kkt_solve(f_j, rhs, rho_vec, sigma)
+    return sc_j, rho_vec, sigma, f_j[0], x_j
 
 
 @pytest.mark.parametrize("scp_iter", [0, 3])
@@ -186,23 +219,18 @@ def test_compensated_factorize_float32_matches(problem32, scp_iter):
     jops = jqp.SAAQPOps(st, data32, jnp.asarray(scp_iter))
     tops = tqp.SAAQPOps(tst, tdata, scp_iter)
     assert jops.factorize_compensated and tops.factorize_compensated
-    _, q = jqp.build_objective(st, data32)
-    l, u = jqp.build_bounds(st, data32, jnp.asarray(scp_iter))
-    sc_j = jadmm.ruiz_equilibrate(jops, q, l, u)
-    rho_vec = jadmm.rho_vector(sc_j.E * l, sc_j.E * u, 0.1).astype(jnp.float32)
-    sigma = jnp.full(q.shape[0], 1e-6, jnp.float32)
-    sops_j = jadmm.ScaledOps(jops, sc_j)
+    rhs = np.random.default_rng(scp_iter).standard_normal(st.n + st.M + 2)
+    rhs = rhs.astype(np.float32)
+    sc_j, rho_vec, sigma, L_j, x_j = _jax_compensated_solve(
+        st, data32, jnp.asarray(scp_iter), jnp.asarray(rhs))
     sops_t = tadmm.ScaledOps(tops, interop.scaling(sc_j, dtype=torch.float32))
-    f_j = sops_j.factorize(rho_vec, sigma)
     rv_t, sg_t = _t(rho_vec), _t(sigma)
     f_t = sops_t.factorize(rv_t, sg_t)
-    L_j = np.asarray(f_j[0], np.float64)
+    L_j = np.asarray(L_j, np.float64)
     L_t = f_t[0].double().numpy()
     S_j, S_t = L_j @ L_j.T, L_t @ L_t.T
     assert np.max(np.abs(S_t - S_j)) <= 1e-6 * np.max(np.abs(S_j))
-    rhs = np.random.default_rng(scp_iter).standard_normal(q.shape[0])
-    rhs = rhs.astype(np.float32)
-    x_j = np.asarray(sops_j.kkt_solve(f_j, jnp.asarray(rhs), rho_vec, sigma))
+    x_j = np.asarray(x_j)
     x_t = sops_t.kkt_solve(f_t, _t(rhs), rv_t, sg_t).numpy()
     assert np.max(np.abs(x_t - x_j)) <= 1e-4 * np.max(np.abs(x_j))
 

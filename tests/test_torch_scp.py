@@ -18,6 +18,10 @@ from riskaversetrajopt_torch.scp import driver as tdriver
 from riskaversetrajopt_tpu.core.config import DroneScenario, SCPConfig
 from riskaversetrajopt_tpu.models.drone import DroneModel
 from riskaversetrajopt_tpu.scp.driver import SAATrajOpt
+from tests.port_harness import (  # noqa: F401 (autouse fixtures)
+    module_time_limit,
+    time_limit_per_test,
+)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 FIXTURES = REPO / "tests" / "fixtures"

@@ -1,19 +1,22 @@
 """Every QP backend that the reference runs on sharded omegas runs
-sample-sharded in the port ('ipm', 'hybrid', 'admm-ir', '_hybrid-prox',
-'admm-ds'): two gloo processes of the selftest worker
+sample-sharded in the port ('ipm', 'hybrid', 'admm-ir' here;
+'_hybrid-prox' and 'admm-ds' in tests/test_torch_sharded_hybrid_prox.py
+and tests/test_torch_sharded_admm_ds.py): two gloo processes of the
+selftest worker
 (riskaversetrajopt_torch/parallel/distributed.py, `--backends`), each
 holding half of tests/test_sharding.py's omegas (JAX's sampler,
 PRNGKey(0), M=16), 3 SCP iterations, float64, against the port's unsharded
 run (tests/test_sharding.py's rtol 1e-8 / atol 1e-10) and the JAX
-package's run on shard_samples(om, make_mesh()) (for 'admm-ds' its
-unsharded run: the reference's sharded 'admm-ds' returns NaN controls).
-One process is the unsharded arithmetic bit for bit; a sharded solve
-checkpoints and resumes; the car's gated structure runs sharded.
+package's run on shard_samples(om, make_mesh()) (for '_hybrid-prox' and
+'admm-ds' its unsharded run). A sharded solve
+checkpoints and resumes. The car's gated structure sharded is in
+tests/test_torch_sharded_car.py, the one-process group in
+tests/test_torch_sharded_one_rank.py; each file starts only the worker
+pair and builds only the references that it compares.
 
 One spawn of the worker pair serves the drone's backends and the
-checkpoint, one 'admm-ds' (as long as the others together), one the car;
-all three run while this process computes the references (the `runs`
-fixture)."""
+checkpoint; it runs while this process computes the references (the
+`runs` fixture)."""
 
 import shutil
 from unittest import mock
@@ -23,34 +26,43 @@ import pytest
 import torch
 import torch.distributed as dist
 
-from riskaversetrajopt_torch.ops import admm, dsjit, qp_refine
-from riskaversetrajopt_torch.ops.saa_qp import SAAQPOps
+from riskaversetrajopt_torch.ops import dsjit, qp_refine
 from riskaversetrajopt_torch.parallel import distributed as tdist
 from riskaversetrajopt_torch.scp.driver import st_total_rows
 from riskaversetrajopt_torch.utils import checkpoint as ckpt
+from tests.port_harness import (  # noqa: F401 (autouse fixtures)
+    module_time_limit,
+    time_limit_per_test,
+)
 from tests.test_torch_distributed import (  # noqa: F401 (fixtures)
     _cap,
     _free_port,
     _join_pair,
     _start_pair,
     jax_omegas,
-    one_thread,
 )
 
 BACKENDS = ("ipm", "hybrid", "admm-ir", "_hybrid-prox", "admm-ds")
+# this file's worker pair; '_hybrid-prox' and 'admm-ds' have pairs and
+# files of their own, so that the three pairs run on three test workers
+PAIR_BACKENDS = ("ipm", "hybrid", "admm-ir")
 ITERS = 3
-# the JAX runs that stay in tier-1: one per family (the IPM, the refinement,
-# the ds ADMM); 'hybrid' and 'admm-ir' are compared with JAX in slow cases
+# the JAX runs that stay in tier-1: one per family (the IPM, the
+# refinement, the ds ADMM); 'hybrid' and 'admm-ir' are compared with JAX in
+# slow cases
 JAX_TIER1 = ("ipm", "_hybrid-prox", "admm-ds")
+# the JAX runs made on the unsharded omegas: the reference's sharded
+# 'admm-ds' returns NaN controls, and its '_hybrid-prox' on the 8-device
+# mesh takes ~90 s alone on an 8-core host against 10 s unsharded, with
+# the same QP iteration counts and controls within 6e-11 relative
+JAX_UNSHARDED = ("_hybrid-prox", "admm-ds")
 CKPT_BACKEND = tdist.CHECKPOINT_BACKEND
-CAR_BACKENDS = ("admm", "ipm")
-CAR_ITERS = 2  # the gated scp_iter 0 and the first live one
 
 
 def _jax_run(backend):
     """The JAX package's drone SCP of the selftest config on
     shard_samples(om, make_mesh()) (the 8-device virtual CPU mesh), or on
-    the unsharded omegas for 'admm-ds'."""
+    the unsharded omegas for JAX_UNSHARDED."""
     import jax
 
     from riskaversetrajopt_tpu.core.config import DroneScenario, SCPConfig
@@ -68,45 +80,48 @@ def _jax_run(backend):
                           gate_bound_u=0.1),
         **(dict(hybrid_cap=cfg["hybrid_cap"]) if prox else {}))
     om = opt.sample(jax.random.PRNGKey(0), M=tdist.SELFTEST_M)
-    if backend != "admm-ds":
+    if backend not in JAX_UNSHARDED:
         om = shard_samples(om, make_mesh())
     return jax.block_until_ready(opt.solve(om, alpha=0.2))
 
 
-@pytest.fixture(scope="module")
-def runs(jax_omegas, tmp_path_factory):
-    """The three worker pairs (the drone's backends but 'admm-ds' and the
-    checkpoint; 'admm-ds'; the car's), started first; while they run, the
-    port's unsharded runs (the correction rounds of 'admm-ir' counted);
-    then the pairs' payloads (the drone's merged) and the tier-1 JAX runs.""" 
-    ck = tmp_path_factory.mktemp("ckpt")
-    common = ("--omegas", jax_omegas, "--scp-iters", str(ITERS))
-    drone = _start_pair("scp", common + (
-        "--backends", ",".join(BACKENDS[:-1]), "--checkpoint", str(ck)))
-    ds = _start_pair("scp", common + ("--backends", BACKENDS[-1]))
-    car = _start_pair("scp", ("--model", "car", "--backends",
-                              ",".join(CAR_BACKENDS), "--scp-iters",
-                              str(CAR_ITERS)))
-    om = tdist.selftest_scp_omegas(path=jax_omegas)
+def unsharded_runs(om, backends):
+    """The port's unsharded runs of `backends` on `om`, and the number of
+    correction rounds of 'admm-ir' (None without it)."""
     ref, corrections = {}, None
-    for b in BACKENDS:
+    for b in backends:
         with mock.patch.object(qp_refine, "_correction_data",
                                wraps=qp_refine._correction_data) as corr:
             ref[b] = tdist.selftest_scp_opt("cpu", ITERS, backend=b).solve(
                 om, alpha=0.2)
         if b == "admm-ir":
             corrections = corr.call_count
-    car_om = tdist.selftest_car_omegas()
-    car_ref = {b: tdist.selftest_car_opt("cpu", CAR_ITERS, backend=b).solve(
-        car_om, alpha=0.2) for b in CAR_BACKENDS}
-    drone = [dict(a, **b) for a, b in zip(_join_pair(drone), _join_pair(ds))]
-    car = _join_pair(car)
-    # after the workers: XLA's thread pool beside six busy processes runs
-    # several times slower
-    jax_ref = {b: _jax_run(b) for b in JAX_TIER1}
-    return {"drone": drone, "car": car, "ref": ref, "car_ref": car_ref,
-            "jax": jax_ref, "om": om, "ckpt_dir": ck,
-            "ir_corrections": corrections}
+    return ref, corrections
+
+
+def pair_runs(jax_omegas, backends, ckpt_dir=None):
+    """The worker pair on `backends` (with the checkpointed solves when
+    `ckpt_dir` is given), started first; while it runs, the port's
+    unsharded runs and the tier-1 JAX runs among `backends`; then the
+    pair's payloads."""
+    extra = ("--checkpoint", str(ckpt_dir)) if ckpt_dir is not None else ()
+    pair = _start_pair("scp", ("--omegas", jax_omegas, "--scp-iters",
+                               str(ITERS), "--backends", ",".join(backends))
+                       + extra)
+    om = tdist.selftest_scp_omegas(path=jax_omegas)
+    ref, corrections = unsharded_runs(om, backends)
+    jax_ref = {b: _jax_run(b) for b in JAX_TIER1 if b in backends}
+    drone = _join_pair(pair)
+    return {"drone": drone, "ref": ref, "jax": jax_ref, "om": om,
+            "ckpt_dir": ckpt_dir, "ir_corrections": corrections}
+
+
+@pytest.fixture(scope="module")
+def runs(jax_omegas, tmp_path_factory):
+    """The worker pair of the drone's 'ipm', 'hybrid', 'admm-ir' and the
+    checkpoint, the unsharded runs, the JAX run of 'ipm'."""
+    return pair_runs(jax_omegas, PAIR_BACKENDS,
+                     ckpt_dir=tmp_path_factory.mktemp("ckpt"))
 
 
 @pytest.fixture(scope="module")
@@ -134,7 +149,20 @@ def _assert_sharded_matches(pair, backend, ref, n, K, M):
     assert c["max_elements"] <= cap < g_shard
 
 
-@pytest.mark.parametrize("backend", BACKENDS)
+def _assert_sharded_matches_jax(runs, backend):
+    """Process 0's run against the JAX package's: its QP iteration counts
+    and flags, the last controls within 1e-6 relative."""
+    j = runs["jax"].get(backend) or _jax_run(backend)
+    a = runs["drone"][0][backend]
+    assert a["qp_iters"] == np.asarray(j.qp_iters).tolist()
+    assert a["qp_solved"] == np.asarray(j.qp_solved).tolist()
+    us = np.array(a["us_history"]).reshape(ITERS, -1)[-1]
+    us_j = np.asarray(j.us).reshape(-1)
+    assert np.all(np.isfinite(us_j))
+    assert np.linalg.norm(us - us_j) <= 1e-6 * np.linalg.norm(us_j)
+
+
+@pytest.mark.parametrize("backend", PAIR_BACKENDS)
 def test_sharded_backend_matches_unsharded(runs, backend):
     """Two processes against the unsharded port on the same omegas. Measured
     (my CPU runs) as a share of the rtol 1e-8 / atol 1e-10 bound: 'ipm'
@@ -148,34 +176,16 @@ def test_sharded_backend_matches_unsharded(runs, backend):
 
 @pytest.mark.parametrize("backend", [
     pytest.param(b, marks=() if b in JAX_TIER1 else pytest.mark.slow)
-    for b in BACKENDS])
+    for b in PAIR_BACKENDS])
 def test_sharded_backend_matches_jax(runs, backend):
     """The sharded run against the JAX package's on the 8-device mesh (for
-    'admm-ds' its unsharded run): JAX's QP iteration counts and flags, the
+    JAX_UNSHARDED its unsharded run): JAX's QP iteration counts and flags, the
     controls within 1e-6 relative (the bound of tests/test_torch_scp.py::
     test_ipm_family_scp_matches_jax_m8). JAX's runs: [4, 4, 11], [25, 25,
     1550], [75, 25, 1100], [75, 1864, 2010] (the third uncertified),
     [75, 25, 1550]; the slow cases compile their JAX run here ('hybrid'
     8 s, 'admm-ir' 18 s on one worker)."""
-    j = runs["jax"].get(backend) or _jax_run(backend)
-    a = runs["drone"][0][backend]
-    assert a["qp_iters"] == np.asarray(j.qp_iters).tolist()
-    assert a["qp_solved"] == np.asarray(j.qp_solved).tolist()
-    us = np.array(a["us_history"]).reshape(ITERS, -1)[-1]
-    us_j = np.asarray(j.us).reshape(-1)
-    assert np.all(np.isfinite(us_j))
-    assert np.linalg.norm(us - us_j) <= 1e-6 * np.linalg.norm(us_j)
-
-
-def test_sharded_hybrid_prox_goes_through_the_rescue(runs):
-    """'_hybrid-prox''s second QP does not certify within the capped ADMM
-    leg (hybrid_cap 1000 iterations): its count is the capped leg's plus
-    the proximal IPM's and the final leg's, on both processes as
-    unsharded (1864)."""
-    cap = tdist.HYBRID_PROX_SELFTEST["hybrid_cap"]
-    iters = runs["drone"][0]["_hybrid-prox"]["qp_iters"]
-    assert iters[1] > cap
-    assert iters == runs["ref"]["_hybrid-prox"].qp_iters.tolist()
+    _assert_sharded_matches_jax(runs, backend)
 
 
 def test_sharded_admm_ir_runs_correction_rounds(runs):
@@ -186,36 +196,6 @@ def test_sharded_admm_ir_runs_correction_rounds(runs):
     assert runs["ir_corrections"] > 0
     assert (runs["drone"][0]["admm-ir"]["qp_iters"]
             == runs["ref"]["admm-ir"].qp_iters.tolist())
-
-
-@pytest.mark.parametrize("backend", BACKENDS)
-def test_one_rank_is_the_unsharded_run_bit_for_bit(runs, one_rank, backend):
-    """On a one-process group every backend is the unsharded arithmetic bit
-    for bit: the first two SCP iterations (the '_hybrid-prox' rescue
-    included) against the unsharded run's. 0.5-3 s each on one worker."""
-    res = tdist.selftest_scp_opt("cpu", 2, one_rank, backend=backend).solve(
-        runs["om"], alpha=0.2)
-    ref = runs["ref"][backend]
-    assert res.qp_iters.tolist() == ref.qp_iters[:2].tolist()
-    assert torch.equal(res.us_history, ref.us_history[:2])
-
-
-def test_prox_ops_carries_the_operator_reductions(one_rank):
-    """_ProxOps forwards its operator's reductions and shard: without them
-    admm.reductions falls back to LOCAL and a sharded '_hybrid-prox' or
-    'admm-ir' would take each process's partial residuals for global
-    ones. Unsharded, the reductions are LOCAL."""
-    st, data = tdist.selftest_problem(tdist.SELFTEST_M)
-    tdata = tdist._to(data, "cpu")
-    sig = torch.tensor(1e-3, dtype=torch.float64)
-    shard = tdist.SampleShard(tdist.SELFTEST_M, one_rank)
-    ops = SAAQPOps(st, tdata, 3, shard=shard)
-    prox = qp_refine._ProxOps(ops, sig)
-    assert prox.reductions is ops.reductions
-    assert prox.shard is shard
-    assert isinstance(admm.reductions(prox), tdist.ShardedReductions)
-    assert admm.reductions(qp_refine._ProxOps(SAAQPOps(st, tdata, 3),
-                                              sig)) is admm.LOCAL
 
 
 def test_compensated_cross_process_sum(runs, one_rank):
@@ -304,21 +284,3 @@ def test_sharded_solve_resumes_from_an_unsharded_file(runs):
     assert saved.warm_x.shape == (st.n + st.M + 2,)
     assert saved.warm_y.shape == (st_total_rows(st),)
     assert np.array_equal(saved.us, ref.us_history[ITERS - 2].numpy())
-
-
-@pytest.mark.parametrize("backend", CAR_BACKENDS)
-def test_car_gated_structure_sharded(runs, backend):
-    """The car (CarScenario(M=8), the port's seed-0 omegas) on two
-    processes through its gated scp_iter 0, whose y rows and sample rows
-    are zeroed while the CVaR row is live (SAAQPOps.free_y: the y-block
-    elimination of _schur_free), and the first live iteration: float64
-    'admm' and 'ipm' against the unsharded run at the drone's bound
-    (measured 3.7e-4 and 9.9e-5 of it)."""
-    opt = tdist.selftest_car_opt("cpu", CAR_ITERS)
-    om = tdist.selftest_car_omegas()
-    alpha = torch.tensor(0.2, dtype=torch.float64)
-    data = opt._define(opt.model.initial_guess(), om, alpha)
-    assert SAAQPOps(opt._static_for(tdist.SELFTEST_CAR_M), data, 0).free_y
-    st = opt.static
-    _assert_sharded_matches(runs["car"], backend, runs["car_ref"][backend],
-                            st.n, st.K, tdist.SELFTEST_CAR_M)
